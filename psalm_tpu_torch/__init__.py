@@ -1,11 +1,12 @@
-"""psalm_tpu_torch: the PSALM COCO-panoptic eval path in PyTorch, with
-hand-written CUDA kernels for Hopper (H100).
+"""psalm_tpu_torch: PSALM in PyTorch, with hand-written CUDA kernels for
+Hopper (H100): the COCO-panoptic eval path and the chat-serving path.
 
-The JAX package ``psalm_tpu`` is the reference the port is held against.
-The port shares its JAX-free modules instead of copying them: the config
-tree (re-exported here), the numpy splicer and the checkpoint converter.
+The JAX package ``psalm_tpu`` is the reference the port is held against in
+the tests. The port imports nothing of it: it keeps its own copies of the
+JAX-free modules it needs (``config.py``, ``data/constants.py``,
+``data/splicer.py``), which the tests hold equal to the originals.
 """
 
-from psalm_tpu.config import PSALMConfig, SegTask, tiny_test_config  # noqa: F401
+from psalm_tpu_torch.config import PSALMConfig, SegTask, tiny_test_config  # noqa: F401
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

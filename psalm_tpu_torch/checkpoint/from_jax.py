@@ -10,6 +10,16 @@ torch state dict, whose keys are the port's parameter names:
   split q/k/v Dense                  -> packed in_proj_weight / in_proj_bias
   batch_stats mean / var             -> running_mean / running_var
 
+and the Phi linears quantized by ``psalm_tpu/models/quant.py``:
+
+  kernel_q int8 [in, out] (QuantDense) -> int8 weight [out, in], transposed
+                                          like a Dense kernel
+  kernel_q4 int8 [in/2, out]           -> packed [in/2, out], the half-split
+  (Quant4Dense, packed storage)           nibble bytes unchanged
+  scale f32 ([out] or [in/g, out])     -> scale, unchanged
+
+(``kernel_q4n``, JAX's native int4 storage, has no counterpart in the port.)
+
 Host numpy only: the arrays may be jax arrays, read with ``np.asarray``.
 """
 
@@ -57,6 +67,21 @@ def _mha(sd: StateDict, prefix: str, p: Dict[str, Any]) -> None:
     _dense(sd, prefix + ".out_proj", p["out_proj"])
 
 
+def _phi_linear(sd: StateDict, prefix: str, p: Dict[str, Any]) -> None:
+    if "kernel_q" in p:
+        sd[prefix + ".weight"] = _a(p["kernel_q"]).T
+        sd[prefix + ".scale"] = _a(p["scale"])
+    elif "kernel_q4" in p:
+        sd[prefix + ".packed"] = _a(p["kernel_q4"])
+        sd[prefix + ".scale"] = _a(p["scale"])
+    elif "kernel_q4n" in p:
+        raise NotImplementedError(f"{prefix}: native int4 storage is not ported")
+    else:
+        sd[prefix + ".weight"] = _a(p["kernel"]).T
+    if "bias" in p:
+        sd[prefix + ".bias"] = _a(p["bias"])
+
+
 def _phi(sd: StateDict, p: Dict[str, Any], num_layers: int) -> None:
     sd["model.embed_tokens.weight"] = _a(p["embed_tokens"]["embedding"])
     _norm(sd, "model.final_layernorm", p["final_layernorm"])
@@ -64,9 +89,9 @@ def _phi(sd: StateDict, p: Dict[str, Any], num_layers: int) -> None:
         t, pre = p[f"layers_{i}"], f"model.layers.{i}"
         _norm(sd, f"{pre}.input_layernorm", t["input_layernorm"])
         for n in ("q_proj", "k_proj", "v_proj", "dense"):
-            _dense(sd, f"{pre}.self_attn.{n}", t["self_attn"][n])
-        _dense(sd, f"{pre}.mlp.fc1", t["fc1"])
-        _dense(sd, f"{pre}.mlp.fc2", t["fc2"])
+            _phi_linear(sd, f"{pre}.self_attn.{n}", t["self_attn"][n])
+        _phi_linear(sd, f"{pre}.mlp.fc1", t["fc1"])
+        _phi_linear(sd, f"{pre}.mlp.fc2", t["fc2"])
 
 
 def _swin(sd: StateDict, p: Dict[str, Any], depths) -> None:

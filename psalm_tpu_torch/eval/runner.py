@@ -22,7 +22,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from psalm_tpu.config import PSALMConfig, SegTask
+from psalm_tpu_torch.config import PSALMConfig, SegTask
 from psalm_tpu_torch.eval import geometry, postprocess
 
 # arrays of the batch that the device never reads
@@ -45,13 +45,14 @@ def synthetic_panoptic_batch(cfg: PSALMConfig, B: int, num_classes: int,
                              seed: int = 0) -> Dict[str, np.ndarray]:
     """A COCO-panoptic eval batch at the real sequence shape, with random
     images: ``num_classes`` class names of ``tokens_per_class`` tokens,
-    spliced with the shared numpy splicer and padded to the eval CLIs'
-    128-multiple bucket (``__graft_entry__._panoptic_batch``), and the
+    spliced with the numpy splicer (``data/splicer.py``) and padded to the
+    eval CLIs' 128-multiple bucket (``__graft_entry__._panoptic_batch``), and the
     non-square geometry of ``bench.py`` (content ``content_hw`` in the padded
     frame, original size ``original_hw``)."""
-    from psalm_tpu.data.constants import (CLS_TOKEN_INDEX, IMAGE_TOKEN_INDEX,
-                                          SEG_TOKEN_INDEX)
-    from psalm_tpu.data.splicer import splice, stack_samples
+    from psalm_tpu_torch.data.constants import (CLS_TOKEN_INDEX,
+                                                IMAGE_TOKEN_INDEX,
+                                                SEG_TOKEN_INDEX)
+    from psalm_tpu_torch.data.splicer import splice, stack_samples
     S = cfg.image_size
     n_img = (S // 64) ** 2
     nq = cfg.mask_decoder.num_queries
@@ -92,7 +93,7 @@ def _content_hw(batch: Dict[str, np.ndarray], S: int) -> np.ndarray:
 class EvalRunner:
     def __init__(self, model, cfg: PSALMConfig, num_class_names=None,
                  is_thing=None, bucket_hw: Optional[Tuple[int, int]] = None):
-        if cfg.seg_task is not SegTask.PANOPTIC:
+        if SegTask(cfg.seg_task.value) is not SegTask.PANOPTIC:
             raise NotImplementedError(
                 f"seg_task {cfg.seg_task.value!r}: only the panoptic eval "
                 "path is ported")

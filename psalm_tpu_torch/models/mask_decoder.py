@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from psalm_tpu.config import MaskDecoderConfig
+from psalm_tpu_torch.config import MaskDecoderConfig
 from psalm_tpu_torch.models.layers import (MLP, Dense, LayerNorm,
                                            MultiheadAttention,
                                            position_embedding_sine)

@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from psalm_tpu.config import PixelDecoderConfig
+from psalm_tpu_torch.config import PixelDecoderConfig
 from psalm_tpu_torch.models.layers import (Conv2d, Dense, GroupNorm, LayerNorm,
                                            position_embedding_sine)
 from psalm_tpu_torch.ops import msdeform

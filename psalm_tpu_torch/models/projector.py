@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from psalm_tpu.config import ProjectorConfig
+from psalm_tpu_torch.config import ProjectorConfig
 from psalm_tpu_torch.models.layers import BatchNorm2d, Conv2d, Dense
 
 

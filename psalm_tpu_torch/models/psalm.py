@@ -1,12 +1,16 @@
 """PSALM top-level model: Swin tower, projector, Phi, pixel decoder, mask
 decoder.
 
-Counterpart of ``psalm_tpu/models/psalm.py`` for the class-name (panoptic)
-conditioning with ``compute_logits=False``, which is what the COCO-panoptic
-eval path runs: the spliced sequence (``psalm_tpu/data/splicer.py``'s arrays,
-unchanged) is assembled with gathers, run through Phi once, and the
-seg-query hidden states and the mean-pooled class-name hidden states
-condition the mask decoder.
+Counterpart of ``psalm_tpu/models/psalm.py`` for two paths:
+  * the class-name (panoptic) conditioning with ``compute_logits=False``,
+    which is what the COCO-panoptic eval path runs: the spliced sequence
+    (``data/splicer.py``'s arrays) is assembled with gathers, run through
+    Phi once, and the seg-query hidden states and the mean-pooled
+    class-name hidden states condition the mask decoder;
+  * what chat generation calls (``models/generation.py``): the image
+    tokens (``encode_images``), the spliced embeddings
+    (``assemble_embeddings``), Phi with a KV cache (``model``, a
+    ``PhiModel``) and the ``lm_head`` logits.
 
 Parameter names are the released checkpoint's torch keys, so
 ``load_state_dict`` takes a released-format state dict directly, or the
@@ -21,8 +25,8 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from psalm_tpu.config import PSALMConfig
-from psalm_tpu.data.constants import SRC_IMAGE, SRC_SEG_QUERY
+from psalm_tpu_torch.config import PSALMConfig
+from psalm_tpu_torch.data.constants import SRC_IMAGE, SRC_SEG_QUERY
 from psalm_tpu_torch.models import layers
 from psalm_tpu_torch.models.mask_decoder import MaskDecoder, Table
 from psalm_tpu_torch.models.phi import PhiModel
@@ -65,7 +69,10 @@ class PSALMBackbone(PhiModel):
 
 
 class PSALM(nn.Module):
-    def __init__(self, cfg: PSALMConfig, dtype=torch.float32, device=None):
+    """The whole model, built on ``device`` (the card unless the caller asks
+    for another; ``"cuda"`` without a card raises, as torch does)."""
+
+    def __init__(self, cfg: PSALMConfig, dtype=torch.float32, device="cuda"):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype

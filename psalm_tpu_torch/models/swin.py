@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from psalm_tpu.config import SwinConfig
+from psalm_tpu_torch.config import SwinConfig
 from psalm_tpu_torch.models.layers import Conv2d, Dense, LayerNorm
 from psalm_tpu_torch.ops.swin_attention import window_attention
 

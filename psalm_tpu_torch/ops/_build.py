@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels of ``psalm_tpu_torch/csrc``.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``) into
-one shared library with a plain C interface, which is loaded with ``ctypes``.
-The library is built at first use into ``build/psalm_tpu_torch/`` at the
-root of the checkout, named by a hash of the sources, so an edited source is
-rebuilt and an unchanged one is loaded as it is.
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for Hopper
+(``sm_90a``), all of them at once, and the objects are linked into one shared
+library with a plain C interface, which is loaded with ``ctypes``. The
+library is built at first use into ``build/psalm_tpu_torch/`` at the root of
+the checkout, named by a hash of the sources, so an edited source is rebuilt
+and an unchanged one is loaded as it is.
 
 Conventions shared by every launcher in ``csrc``:
   * each ``extern "C"`` launcher returns ``cudaGetLastError()`` as an int;
@@ -33,7 +34,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "psalm_tpu_torch"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 # Must match csrc/common.cuh::DType.
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -50,6 +51,9 @@ SIGNATURES = {
     # qkv, bias, mask, out, dtype, Bn, N, C, nheads, nW, scale, stream
     "psalm_window_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                                    _P],
+    # x, packed, scale, partial, out, dtype, B, K, N, group, rows_per_split,
+    # splits, stream
+    "psalm_int4_matvec": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -81,9 +85,14 @@ def find_nvcc() -> str:
     return found
 
 
-def nvcc_command(nvcc: str, srcs: List[Path], out: Path) -> List[str]:
-    """The nvcc command line that builds ``out`` from ``srcs``."""
-    return [nvcc, *NVCC_FLAGS, "-o", str(out), *map(str, srcs)]
+def compile_command(nvcc: str, src: Path, obj: Path) -> List[str]:
+    """The nvcc command line that compiles one source into ``obj``."""
+    return [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+
+
+def link_command(nvcc: str, objs: List[Path], out: Path) -> List[str]:
+    """The nvcc command line that links the objects into the library."""
+    return [nvcc, "-shared", "-o", str(out), *map(str, objs)]
 
 
 def library_path() -> Path:
@@ -91,19 +100,38 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the kernels unless the library for these sources exists."""
+    """Compile the kernels unless the library for these sources exists: one
+    nvcc per source, all started together, then one link."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = find_nvcc()
+    tag = f"{source_hash()}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources()]
+    cmds = [compile_command(nvcc, src, obj) for src, obj in zip(sources(), objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    errors = []
+    for cmd, proc in zip(cmds, procs):
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = nvcc_command(find_nvcc(), sources(), tmp)
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    try:
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        cmd = link_command(nvcc, objs, tmp)
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return out
 
 

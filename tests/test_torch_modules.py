@@ -90,7 +90,8 @@ def setup():
     cfg = tiny_test_config()
     variables = jax.tree.map(jnp.asarray,
                              convert_psalm_checkpoint(parity_state_dict(cfg), cfg))
-    port = load_port(PSALM(cfg), jax_to_torch_state_dict(variables, cfg))
+    port = load_port(PSALM(cfg, device="cpu"),
+                     jax_to_torch_state_dict(variables, cfg))
     return cfg, variables, port
 
 

@@ -67,7 +67,8 @@ def runners():
     # weight seed 3: each case's panoptic map then holds an accepted segment
     variables = jax.tree.map(jnp.asarray, convert_psalm_checkpoint(
         parity_state_dict(cfg, seed=3), cfg))
-    port = load_port(PSALM(cfg), jax_to_torch_state_dict(variables, cfg))
+    port = load_port(PSALM(cfg, device="cpu"),
+                     jax_to_torch_state_dict(variables, cfg))
     jrun = JEvalRunner(JPSALM(cfg), variables, cfg, num_class_names=K,
                        is_thing=IS_THING, bucket_hw=BUCKET)
     trun = EvalRunner(port, cfg, num_class_names=K, is_thing=IS_THING,

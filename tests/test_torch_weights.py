@@ -40,7 +40,7 @@ def test_round_trip_through_jax_layout():
 def test_port_loads_released_layout_directly():
     cfg = tiny_test_config()
     sd = synthetic_torch_sd(cfg, np.random.default_rng(1))
-    model = PSALM(cfg)
+    model = PSALM(cfg, device="cpu")
     model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()},
                           strict=True)
     state = model.state_dict()
