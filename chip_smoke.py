@@ -122,8 +122,7 @@ def cuda_time_ms(fn, iters=20, warmup=3):
 def device_ms(fn, iters=20, warmup=3):
     """Device time per call of fn: the summed duration of the kernels and
     copies it launches, from torch.profiler's CUDA trace, over ``iters``
-    calls. Falls back to cuda_time_ms where the trace holds no device
-    event."""
+    calls. Fails where the trace holds no device event."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -137,8 +136,7 @@ def device_ms(fn, iters=20, warmup=3):
     us = sum(e.time_range.elapsed_us() for e in prof.events()
              if e.device_type == DeviceType.CUDA)
     if us <= 0:
-        log("  (profiler saw no device events: CUDA-event time instead)")
-        return cuda_time_ms(fn, iters, warmup)
+        fail("torch.profiler recorded no device events: no device time")
     return us / iters / 1e3
 
 
@@ -333,7 +331,8 @@ def check_k4(torch, int4_matvec, records):
                        lambda: int4_matvec.int4_matvec_ref(x, packed, scale,
                                                            group),
                        lambda: torch.matmul(x, w_lib),
-                       bound(nbytes, 2 * B * K * N, "float32"))
+                       # int4 values are exact in bf16: x's type sets the rate
+                       bound(nbytes, 2 * B * K * N, dtype_name(dtype)))
                 if dtype == torch.bfloat16:
                     if B == 1:  # built and checked once per weight
                         int4pack = int4pack_call(torch, packed, scale, group,
@@ -508,6 +507,8 @@ def time_decode(torch, gen, batch):
         wall_us = (time.perf_counter() - t0) * 1e6
     busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
                   if e.device_type == DeviceType.CUDA)
+    if busy_us <= 0:
+        fail("torch.profiler recorded no device events in the decode steps")
     return prefill_ms, step_ms, busy_us / wall_us
 
 

@@ -85,14 +85,27 @@ def find_nvcc() -> str:
     return found
 
 
-def compile_command(nvcc: str, src: Path, obj: Path) -> List[str]:
-    """The nvcc command line that compiles one source into ``obj``."""
-    return [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+def nvcc_command(nvcc: str, srcs: List[Path], out: Path,
+                 compile_only: bool = False) -> List[str]:
+    """The nvcc command line that builds ``out`` from ``srcs``: the shared
+    library, or with ``compile_only`` one source's object file."""
+    return [nvcc, *NVCC_FLAGS, "-c" if compile_only else "-shared", "-o",
+            str(out), *map(str, srcs)]
 
 
-def link_command(nvcc: str, objs: List[Path], out: Path) -> List[str]:
-    """The nvcc command line that links the objects into the library."""
-    return [nvcc, "-shared", "-o", str(out), *map(str, objs)]
+def _run_together(cmds: List[List[str]]) -> None:
+    """Start every command at once, wait for all, raise if any failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    errors = []
+    for cmd, proc in zip(cmds, procs):
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
+                          f"\n{log}")
+    if errors:
+        raise RuntimeError("\n".join(errors))
 
 
 def library_path() -> Path:
@@ -107,31 +120,16 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
-    tag = f"{source_hash()}.{os.getpid()}"
-    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources()]
-    cmds = [compile_command(nvcc, src, obj) for src, obj in zip(sources(), objs)]
-    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for cmd in cmds]
-    errors = []
-    for cmd, proc in zip(cmds, procs):
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            errors.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources()]
     try:
-        if errors:
-            raise RuntimeError("\n".join(errors))
-        cmd = link_command(nvcc, objs, tmp)
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc link failed ({proc.returncode}): "
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        _run_together([nvcc_command(nvcc, [src], obj, compile_only=True)
+                       for src, obj in zip(sources(), objs)])
+        _run_together([nvcc_command(nvcc, objs, tmp)])
         os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     finally:
-        tmp.unlink(missing_ok=True)
-        for obj in objs:
-            obj.unlink(missing_ok=True)
+        for path in (tmp, *objs):
+            path.unlink(missing_ok=True)
     return out
 
 

@@ -87,24 +87,31 @@ def test_wrappers_check_inputs_before_launch(monkeypatch):
 
 
 def test_nvcc_command_targets_sm90a():
+    out = _build.library_path()
+    cmd = _build.nvcc_command("nvcc", _build.sources(), out)
+    assert cmd[0] == "nvcc"
+    for flag in ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                 "-O3", "-shared", "-Xcompiler", "-fPIC"):
+        assert flag in cmd
+    assert cmd[cmd.index("-o") + 1] == str(out)
+    srcs = {p.name for p in _build.sources()}
+    assert {"msdeform.cu", "swin_attention.cu"} <= srcs
+    assert all(str(_build.CSRC_DIR / s) in cmd for s in srcs)
+    assert out.parent == _build.PACKAGE_DIR.parent / "build" / "psalm_tpu_torch"
+    assert _build.source_hash() in out.name
+
+
+def test_nvcc_compiles_each_source_on_its_own_for_sm90a():
     srcs = _build.sources()
-    assert {"msdeform.cu", "swin_attention.cu", "int4_matvec.cu"} <= \
-        {p.name for p in srcs}
+    assert "int4_matvec.cu" in {p.name for p in srcs}
     for src in srcs:
         obj = _build.BUILD_DIR / f"{src.stem}.o"
-        cmd = _build.compile_command("nvcc", src, obj)
-        assert cmd[0] == "nvcc"
+        cmd = _build.nvcc_command("nvcc", [src], obj, compile_only=True)
         for flag in ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                      "-O3", "-Xcompiler", "-fPIC", "-c"):
             assert flag in cmd
+        assert "-shared" not in cmd
         assert cmd[cmd.index("-o") + 1] == str(obj) and cmd[-1] == str(src)
-    out = _build.library_path()
-    objs = [_build.BUILD_DIR / f"{p.stem}.o" for p in srcs]
-    cmd = _build.link_command("nvcc", objs, out)
-    assert "-shared" in cmd and cmd[cmd.index("-o") + 1] == str(out)
-    assert all(str(o) in cmd for o in objs)
-    assert out.parent == _build.PACKAGE_DIR.parent / "build" / "psalm_tpu_torch"
-    assert _build.source_hash() in out.name
 
 
 def _int4_args(device="cpu", dtype=torch.float32, B=3, K=256, N=128, group=64):

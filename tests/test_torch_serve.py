@@ -110,17 +110,12 @@ class StubTokenizer:
 
 @pytest.fixture(scope="module")
 def worker(gen):
-    w = ModelWorker.__new__(ModelWorker)
-    w.model_name = "psalm-test"
-    w.semaphore = threading.Semaphore(2)
-    w.queue_length = 0
-    w.tokenizer = StubTokenizer()
-    w.generator = gen
-    w.batched = BatchedGenerator(gen, eos_id=None, max_batch=2, window_s=0.0,
-                                 chunk_size=4)
-    from psalm_tpu_torch.data.mappers import ImageMapper
-    w.mapper = ImageMapper(64)
-    w.num_image_tokens = 1
+    # a model built in memory, no controller: the worker's own constructor
+    w = ModelWorker(None, None, None, "psalm-test", limit_concurrency=2,
+                    image_size=64, decode_chunk=4, max_batch=2,
+                    batch_window_ms=0.0, device="cpu", model=gen.model,
+                    tokenizer=StubTokenizer())
+    assert w.num_image_tokens == 1
     srv = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(w))
     threading.Thread(target=srv.serve_forever, daemon=True).start()
     yield w, f"http://127.0.0.1:{srv.server_port}"
