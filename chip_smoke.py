@@ -21,9 +21,16 @@ Phases, each of which must pass:
                  K4 int4 matvec: Phi-1.5's decode linears, (K, N) = (2048,
                     2048) q/k/v/dense, (2048, 8192) fc1, (8192, 2048) fc2,
                     group 64, B = 1, 4, 16, x in bf16 and f32; exact on
-                    one-hot rows with power-of-two scales.
+                    one-hot rows with power-of-two scales;
+                 K5 attention: causal at Phi's eval shape (B=1, 32 heads of
+                    64, L=640) and at L=577, bf16 and f32; non-causal over
+                    the S=21504 encoder tokens with 8 heads of 32 and 2 of
+                    128, bf16.
   4. small   - the whole eval slice at the tiny config in f32: kernels on the
-               card against the plain versions on the CPU, same weights.
+               card against the plain versions on the CPU, same weights; the
+               panoptic task, then with Phi's use_flash (heads of 32) the
+               semantic, instance, referring and region tasks and the
+               panoptic task with the dense pixel decoder (one head of 32).
   5. eval    - the COCO-panoptic eval path (EvalRunner.infer) at the full
                published width (PSALMConfig(): Swin-B, Phi-1.5, 6 encoder and
                9 decoder layers) in bf16, with random weights drawn on the card
@@ -44,6 +51,16 @@ Phases, each of which must pass:
                decode step with K4 is held against the packed plain path, and
                prefill and decode are timed at B=1 and B=4 for int4, int8 and
                the unquantized bf16 model.
+  7. tasks   - the semantic, instance, referring and region eval tasks
+               (EvalRunner.infer) at the full published width in bf16 with
+               Phi's use_flash, as bench.py builds the eval model, on
+               bench.py's geometry: class names as in phase 5; a referring
+               sentence of 12 tokens; 4 regions of 256 points. 2 warm-up and
+               3 timed images per task; the counters, zeroed before each
+               timed run, must show 24 K5 (causal), 24 K3 and 6 K1 launches
+               per image.
+  8. dense   - the panoptic task with attention_mode="dense" and use_flash:
+               6 non-causal and 24 causal K5 launches per image, no K1.
 
 f32 comparisons run with TF32 off. On the line before the last: a JSON object
 with each kernel's checks, launches, times and bound. The last line is
@@ -79,6 +96,9 @@ K4_TOL = 5e-2  # decode-step logits, K4 vs packed plain path, x max |logit|
 
 K4_SHAPES = ((2048, 2048, "q/k/v/dense"), (2048, 8192, "fc1"),
              (8192, 2048, "fc2"))
+# the eval tasks' slice
+TASK_WARMUP, TASK_IMAGES = 2, 3
+REFER_TOKENS, REGIONS, REGION_POINTS = 12, 4, 256
 SOURCES = {
     "K1": ("psalm_tpu_torch/csrc/msdeform.cu",
            # also replaces msdeform_window_pallas2.py:115, the same function,
@@ -88,7 +108,31 @@ SOURCES = {
            "psalm_tpu/ops/swin_attention_pallas.py:82"),
     "K4": ("psalm_tpu_torch/csrc/int4_matvec.cu",
            "psalm_tpu/ops/int4_matvec.py:86"),
+    # both call the stock TPU kernel jax.experimental.pallas.ops.tpu
+    # .flash_attention, which reaches pl.pallas_call
+    "K5 causal": ("psalm_tpu_torch/csrc/flash_attention.cu",
+                  "psalm_tpu/models/phi.py:122"),
+    "K5 non-causal": ("psalm_tpu_torch/csrc/flash_attention.cu",
+                      "psalm_tpu/models/pixel_decoder.py:166"),
 }
+
+
+def launch_counts():
+    """Every kernel's launches since the counters were last zeroed."""
+    from psalm_tpu_torch.ops import (flash_attention, int4_matvec, msdeform,
+                                     swin_attention)
+    return {"K1": msdeform.LAUNCHES, "K3": swin_attention.LAUNCHES,
+            "K4": int4_matvec.LAUNCHES,
+            "K5 causal": flash_attention.CAUSAL_LAUNCHES,
+            "K5 non-causal": (flash_attention.LAUNCHES
+                              - flash_attention.CAUSAL_LAUNCHES)}
+
+
+def zero_counts():
+    from psalm_tpu_torch.ops import (flash_attention, int4_matvec, msdeform,
+                                     swin_attention)
+    msdeform.LAUNCHES = swin_attention.LAUNCHES = int4_matvec.LAUNCHES = 0
+    flash_attention.LAUNCHES = flash_attention.CAUSAL_LAUNCHES = 0
 
 
 def log(msg):
@@ -119,25 +163,47 @@ def cuda_time_ms(fn, iters=20, warmup=3):
     return sorted(times)[len(times) // 2]
 
 
-def device_ms(fn, iters=20, warmup=3):
-    """Device time per call of fn: the summed duration of the kernels and
-    copies it launches, from torch.profiler's CUDA trace, over ``iters``
-    calls. Fails where the trace holds no device event."""
+def profiled_us(run, what, tries=10):
+    """(device us, host us) of ``run()``: the summed duration of the kernels
+    and copies in torch.profiler's CUDA trace, and the host clock around
+    it. The profiler now and then returns traces without device events,
+    several in a row (two of three tries on an H100); such a run is
+    repeated after a pause, up to ``tries`` runs, then the phase fails."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    for attempt in range(tries):
+        if attempt:
+            time.sleep(1.0)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us, wall_us
+        log(f"  (torch.profiler recorded no device events for {what}, run "
+            f"{attempt + 1} of {tries})")
+    fail(f"torch.profiler recorded no device events for {what}: no device "
+         "time")
+
+
+def device_ms(fn, iters=20, warmup=3):
+    """Device time per call of fn from torch.profiler's CUDA trace over
+    ``iters`` calls (``profiled_us``)."""
+    import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
-    if us <= 0:
-        fail("torch.profiler recorded no device events: no device time")
-    return us / iters / 1e3
+
+    return profiled_us(run, "a kernel check")[0] / iters / 1e3
 
 
 def bound(nbytes, flops, dtype):
@@ -343,6 +409,36 @@ def check_k4(torch, int4_matvec, records):
                         f"{records[-1]['int4pack_ms']} ms")
 
 
+def check_k5(torch, flash_attention, records):
+    import torch.nn.functional as F
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(5)
+    cases = [(32, 640, 64, True, torch.bfloat16, 3e-2),   # Phi, eval batch
+             (32, 640, 64, True, torch.float32, 1e-4),
+             (32, 577, 64, True, torch.bfloat16, 3e-2),   # no tile multiple
+             (32, 577, 64, True, torch.float32, 1e-4),
+             (8, 21504, 32, False, torch.bfloat16, 3e-2),  # dense encoder
+             (2, 21504, 128, False, torch.bfloat16, 3e-2)]
+    for h, L, hd, causal, dtype, tol in cases:
+        q, k, v = (torch.randn(1, h, L, hd, generator=g, device=dev).to(dtype)
+                   for _ in range(3))
+        kw = dict(causal=causal, sm_scale=hd ** -0.5)
+        got = flash_attention.flash_attention(q, k, v, **kw)
+        want = flash_attention.flash_attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        nbytes = 4 * q.numel() * q.element_size()  # q, k, v read, out written
+        flops = 4 * h * L * L * hd // (2 if causal else 1)
+        kernel = "K5 causal" if causal else "K5 non-causal"
+        record(records, kernel, f"{kernel} flash_attention {dtype_name(dtype)} "
+               f"B=1 h={h} L={L} hd={hd}", err, tol,
+               lambda: flash_attention.flash_attention(q, k, v, **kw),
+               lambda: flash_attention.flash_attention_ref(q, k, v, **kw),
+               lambda: F.scaled_dot_product_attention(
+                   q, k, v, is_causal=causal, scale=hd ** -0.5),
+               bound(nbytes, flops, dtype_name(dtype)))
+
+
 def check_small_slice(torch, np):
     """Tiny config, f32: kernels on the card vs plain versions on the CPU."""
     from psalm_tpu_torch import tiny_test_config
@@ -380,7 +476,123 @@ def check_small_slice(torch, np):
         fail(f"small slice panoptic_seg agreement {agree}")
 
 
-def eval_slice(torch, np, card, msdeform, swin_attention):
+def small_task_batch(cfg, task, K, seed):
+    from psalm_tpu_torch import SegTask
+    from psalm_tpu_torch.eval.runner import (synthetic_panoptic_batch,
+                                             synthetic_referring_batch,
+                                             synthetic_region_batch)
+    content, orig = (48, 64), (97, 131)
+    if task is SegTask.REFERRING:
+        return synthetic_referring_batch(cfg, 2, content, orig, refer_tokens=5,
+                                         seed=seed)
+    if task is SegTask.REGION:
+        return synthetic_region_batch(cfg, 2, content, orig, regions=4,
+                                      valid_regions=3, points=32, seed=seed)
+    return synthetic_panoptic_batch(cfg, 2, K, content, orig,
+                                    tokens_per_class=2, seed=seed)
+
+
+def ranked_agree(np, got, want, name):
+    """Items of a ranked head (instance, referring) held item by item where
+    the CPU's scores are 1e-3 apart from their neighbours: class or query
+    equal and masks agreeing on 99% of pixels. Scores within 1e-3 of the
+    largest."""
+    for b in range(len(want["masks"])):
+        ws, gs = want["scores"][b], got["scores"][b]
+        tol = 1e-3 * max(np.abs(ws).max(), 1e-6)
+        if not np.abs(np.sort(gs) - np.sort(ws)).max() <= tol:
+            fail(f"small {name}: scores differ beyond {tol}")
+        gap = np.abs(np.diff(ws)) > tol
+        apart = np.concatenate([[True], gap]) & np.concatenate([gap, [True]])
+        if not apart.any():
+            fail(f"small {name}: no ranked item to compare")
+        for i in np.flatnonzero(apart):
+            for key in ("classes", "query"):
+                if key in want and got[key][b][i] != want[key][b][i]:
+                    fail(f"small {name}: {key} differs at rank {i}")
+            agree = np.mean(got["masks"][b][i] == want["masks"][b][i])
+            if agree < 0.99:
+                fail(f"small {name}: mask at rank {i} agrees on {agree}")
+
+
+def check_small_tasks(torch, np):
+    """Tiny config with Phi's use_flash (2 heads of 32) in f32: the four
+    tasks, and the panoptic task with the dense pixel decoder (1 head of
+    32), kernels on the card against the plain versions on the CPU."""
+    import dataclasses
+    from psalm_tpu_torch import SegTask, tiny_test_config
+    from psalm_tpu_torch.eval.runner import EvalRunner
+    from psalm_tpu_torch.models.psalm import PSALM, init_weights_
+    base = tiny_test_config()
+    base = base.replace(phi=dataclasses.replace(base.phi, num_heads=2))
+    K = 4
+    for task, mode in ((SegTask.SEMANTIC, "deformable"),
+                       (SegTask.INSTANCE, "deformable"),
+                       (SegTask.REFERRING, "deformable"),
+                       (SegTask.REGION, "deformable"),
+                       (SegTask.PANOPTIC, "dense")):
+        cfg = base.replace(seg_task=task, pixel_decoder=dataclasses.replace(
+            base.pixel_decoder, attention_mode=mode,
+            transformer_nheads=1 if mode == "dense" else 4))
+        name = f"{task.value}/{mode}"
+        cpu = init_weights_(PSALM(cfg, device="cpu", use_flash=True),
+                            torch.Generator().manual_seed(7))
+        gpu = PSALM(cfg, device="cuda", use_flash=True)
+        gpu.load_state_dict(cpu.state_dict())
+        batch = small_task_batch(cfg, task, K, seed=8)
+        flags = dict(use_class_names=task in (SegTask.PANOPTIC,
+                                              SegTask.SEMANTIC,
+                                              SegTask.INSTANCE),
+                     use_seg_embedding=task is SegTask.REFERRING,
+                     use_regions=task is SegTask.REGION,
+                     num_class_names=K)
+        runs = {}
+        for dev, model in (("cpu", cpu), ("cuda", gpu)):
+            runner = EvalRunner(model, cfg, num_class_names=K,
+                                bucket_hw=(128, 160))
+            zero_counts()
+            with torch.no_grad():
+                out = model(runner.stage(batch), **flags)
+            runs[dev] = (out, runner.infer(batch), launch_counts())
+        (c_out, c_res, _), (g_out, g_res, counts) = runs["cpu"], runs["cuda"]
+        layers = 2 * cfg.phi.num_layers  # two forwards of the model
+        if counts["K5 causal"] != layers or counts["K5 non-causal"] != (
+                2 * cfg.pixel_decoder.transformer_enc_layers
+                if mode == "dense" else 0):
+            fail(f"small {name}: K5 launches {counts}")
+        logit = {SegTask.REFERRING: "pred_SEG_logits",
+                 SegTask.REGION: "pred_region_logits"}.get(
+                     task, "pred_class_name_logits")
+        for key in ("pred_masks", logit):
+            want = c_out[key].double()
+            want = torch.where(want == -1e9, torch.zeros_like(want), want)
+            got = g_out[key].cpu().double()
+            got = torch.where(got == -1e9, torch.zeros_like(got), got)
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            if not err <= 1e-3 * scale:
+                fail(f"small {name} {key}: err {err} > 1e-3 x {scale}")
+        maps = [k for k in ("panoptic_seg", "sem_seg") if k in c_res]
+        for key in maps:
+            agree = np.mean([np.mean(a == b) for a, b in
+                             zip(g_res[key], c_res[key])])
+            if agree < 0.99:
+                fail(f"small {name} {key} agreement {agree}")
+        if task is SegTask.REGION:
+            g, w = g_res["region"], c_res["region"]
+            err = np.abs(g["scores"] - w["scores"]).max()
+            agree = np.mean([np.mean(a == b) for a, b in
+                             zip(g["masks"], w["masks"])])
+            if not (err <= 1e-3 * np.abs(w["scores"]).max() and agree >= 0.99):
+                fail(f"small {name}: scores err {err}, masks agree {agree}")
+        elif task in (SegTask.INSTANCE, SegTask.REFERRING):
+            key = "instances" if task is SegTask.INSTANCE else "referring"
+            ranked_agree(np, g_res[key], c_res[key], name)
+        log(f"  {name}: logits within 1e-3, maps/masks agree; launches "
+            f"{counts}")
+
+
+def eval_slice(torch, np, card):
     """Phase 5; returns the kernels' launches in the timed run."""
     from psalm_tpu_torch import PSALMConfig
     from psalm_tpu_torch.eval.runner import EvalRunner, synthetic_panoptic_batch
@@ -401,27 +613,17 @@ def eval_slice(torch, np, card, msdeform, swin_attention):
     with torch.no_grad():
         out = model(runner.stage(batch), num_class_names=K)
     pm, cl = out["pred_masks"], out["pred_class_name_logits"]
-    if tuple(pm.shape) != (1, cfg.mask_decoder.num_queries, 256, 256) \
+    S4 = cfg.image_size // 4
+    if tuple(pm.shape) != (1, cfg.mask_decoder.num_queries, S4, S4) \
             or tuple(cl.shape) != (1, cfg.mask_decoder.num_queries, K):
         fail(f"output shapes {tuple(pm.shape)} {tuple(cl.shape)}")
     if not (torch.isfinite(pm.float()).all() and torch.isfinite(cl.float()).all()):
         fail("non-finite pred_masks or class logits")
-    for _ in range(2):  # warm-up
-        runner.infer(batch)
-    torch.cuda.synchronize()
-
-    msdeform.LAUNCHES = 0
-    swin_attention.LAUNCHES = 0
-    times = []
-    t_all = time.perf_counter()
-    for _ in range(TIMED_IMAGES):
-        t0 = time.perf_counter()
-        res = runner.infer(batch)  # ends in a device-to-host copy
-        times.append(time.perf_counter() - t0)
-    wall = time.perf_counter() - t_all
-    launches = {"K1": msdeform.LAUNCHES, "K3": swin_attention.LAUNCHES}
+    times, wall, launches, res = timed_images(torch, runner, batch, 2,
+                                              TIMED_IMAGES)
     expect = {"K1": cfg.pixel_decoder.transformer_enc_layers * TIMED_IMAGES,
-              "K3": sum(cfg.swin.depths) * TIMED_IMAGES}
+              "K3": sum(cfg.swin.depths) * TIMED_IMAGES, "K4": 0,
+              "K5 causal": 0, "K5 non-causal": 0}
     log(f"launches in the timed run: {launches} (expected {expect})")
     if launches != expect:
         fail(f"kernel launches {launches} != {expect}")
@@ -437,6 +639,137 @@ def eval_slice(torch, np, card, msdeform, swin_attention):
         f"({TIMED_IMAGES} images, batch 1, bf16) on {card}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return launches
+
+
+def timed_images(torch, runner, batch, warmup, n):
+    """``warmup`` images, then ``n`` timed ones with the counters zeroed
+    just before: (per-image seconds, wall seconds, launches, last result)."""
+    for _ in range(warmup):
+        runner.infer(batch)
+    torch.cuda.synchronize()
+    zero_counts()
+    times = []
+    t_all = time.perf_counter()
+    for _ in range(n):
+        t0 = time.perf_counter()
+        res = runner.infer(batch)  # ends in a device-to-host copy
+        times.append(time.perf_counter() - t0)
+    wall = time.perf_counter() - t_all
+    return times, wall, launch_counts(), res
+
+
+def check_task_result(np, task, res, Q, K):
+    """Shapes, ranges and finiteness of one task's result at the original
+    size."""
+    from psalm_tpu_torch import SegTask
+    H, W = ORIGINAL_HW
+    if task in (SegTask.SEMANTIC, SegTask.PANOPTIC):
+        sem = res["sem_seg"][0]
+        if sem.shape != ORIGINAL_HW or sem.max() >= K - 1:
+            fail(f"{task.value}: sem_seg {sem.shape}, max {sem.max()}")
+        return f"sem_seg classes {np.unique(sem).tolist()[:10]}"
+    key = {SegTask.INSTANCE: "instances", SegTask.REFERRING: "referring",
+           SegTask.REGION: "region"}[task]
+    r = res[key]
+    masks, scores = r["masks"][0], r["scores"][0]
+    want_scores = (Q, REGIONS) if task is SegTask.REGION else (Q,)
+    if masks.shape != (Q, H, W) or masks.dtype != bool \
+            or scores.shape != want_scores or not np.isfinite(scores).all() \
+            or scores.min() < 0 or scores.max() > 1:
+        fail(f"{task.value}: masks {masks.shape} {masks.dtype}, scores "
+             f"{scores.shape} in [{scores.min()}, {scores.max()}]")
+    if task is SegTask.REGION and (scores[:, REGIONS - 1] != 0).any():
+        fail("region: the invalid region slot has nonzero scores")
+    return (f"top score {scores.max():.4f}, {int(masks[0].sum())} pixels in "
+            f"the first mask")
+
+
+def task_slice(torch, np, card):
+    """Phase 7; returns each task's launches in its timed run."""
+    from psalm_tpu_torch import PSALMConfig, SegTask
+    from psalm_tpu_torch.eval.runner import (EvalRunner, synthetic_panoptic_batch,
+                                             synthetic_referring_batch,
+                                             synthetic_region_batch)
+    from psalm_tpu_torch.models.psalm import PSALM, init_weights_
+    cfg = PSALMConfig(compute_dtype="bfloat16")
+    K = cfg.num_classes + 1
+    Q = cfg.mask_decoder.num_queries
+    model = PSALM(cfg, dtype=torch.bfloat16, device="cuda", use_flash=True)
+    init_weights_(model, torch.Generator(device="cuda").manual_seed(2))
+    model.to(torch.bfloat16)
+    batches = {
+        SegTask.SEMANTIC: synthetic_panoptic_batch(cfg, 1, K, CONTENT_HW,
+                                                   ORIGINAL_HW),
+        SegTask.INSTANCE: synthetic_panoptic_batch(cfg, 1, K, CONTENT_HW,
+                                                   ORIGINAL_HW),
+        SegTask.REFERRING: synthetic_referring_batch(
+            cfg, 1, CONTENT_HW, ORIGINAL_HW, refer_tokens=REFER_TOKENS),
+        # the last slot is padding (region_valid False), as the region
+        # dataset pads its prompts
+        SegTask.REGION: synthetic_region_batch(
+            cfg, 1, CONTENT_HW, ORIGINAL_HW, regions=REGIONS,
+            valid_regions=REGIONS - 1, points=REGION_POINTS)}
+    per_image = {"K1": cfg.pixel_decoder.transformer_enc_layers,
+                 "K3": sum(cfg.swin.depths), "K4": 0,
+                 "K5 causal": cfg.phi.num_layers, "K5 non-causal": 0}
+    launches = {}
+    for task, batch in batches.items():
+        runner = EvalRunner(model, cfg.replace(seg_task=task),
+                            num_class_names=K, bucket_hw=BUCKET_HW)
+        times, wall, counts, res = timed_images(torch, runner, batch,
+                                                TASK_WARMUP, TASK_IMAGES)
+        expect = {k: v * TASK_IMAGES for k, v in per_image.items()}
+        if counts != expect:
+            fail(f"{task.value}: kernel launches {counts} != {expect}")
+        what = check_task_result(np, task, res, Q, K)
+        p50 = sorted(times)[len(times) // 2]
+        log(f"{task.value}: p50 {p50 * 1e3:.2f} ms, {TASK_IMAGES / wall:.3f} "
+            f"img/s ({TASK_IMAGES} images, batch 1, bf16, sequence "
+            f"{batch['tok_ids'].shape[1]}) on {card}; {what}; launches "
+            f"{counts}")
+        launches[f"tasks/{task.value}"] = counts
+    log(f"tasks peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches
+
+
+def dense_slice(torch, np, card):
+    """Phase 8; returns the launches of its timed run."""
+    import dataclasses
+    from psalm_tpu_torch import PSALMConfig
+    from psalm_tpu_torch.eval.runner import EvalRunner, synthetic_panoptic_batch
+    from psalm_tpu_torch.models.psalm import PSALM, init_weights_
+    base = PSALMConfig(compute_dtype="bfloat16")
+    cfg = base.replace(pixel_decoder=dataclasses.replace(
+        base.pixel_decoder, attention_mode="dense"))
+    K = cfg.num_classes + 1
+    model = PSALM(cfg, dtype=torch.bfloat16, device="cuda", use_flash=True)
+    init_weights_(model, torch.Generator(device="cuda").manual_seed(3))
+    model.to(torch.bfloat16)
+    batch = synthetic_panoptic_batch(cfg, 1, K, CONTENT_HW, ORIGINAL_HW)
+    runner = EvalRunner(model, cfg, num_class_names=K,
+                        is_thing=[i % 2 == 0 for i in range(K - 1)],
+                        bucket_hw=BUCKET_HW)
+    times, wall, counts, res = timed_images(torch, runner, batch, TASK_WARMUP,
+                                            TASK_IMAGES)
+    expect = {"K1": 0, "K3": sum(cfg.swin.depths) * TASK_IMAGES, "K4": 0,
+              "K5 causal": cfg.phi.num_layers * TASK_IMAGES,
+              "K5 non-causal": cfg.pixel_decoder.transformer_enc_layers
+              * TASK_IMAGES}
+    if counts != expect:
+        fail(f"dense: kernel launches {counts} != {expect}")
+    pan = res["panoptic_seg"][0]
+    if pan.shape != ORIGINAL_HW:
+        fail(f"dense: panoptic_seg {pan.shape} != {ORIGINAL_HW}")
+    what = check_task_result(np, cfg.seg_task, res, 0, K)
+    p50 = sorted(times)[len(times) // 2]
+    pd = cfg.pixel_decoder
+    S = sum((cfg.image_size // s) ** 2 for s in (8, 16, 32))
+    log(f"dense panoptic: p50 {p50 * 1e3:.2f} ms, {TASK_IMAGES / wall:.3f} "
+        f"img/s ({TASK_IMAGES} images, batch 1, bf16, "
+        f"{pd.transformer_nheads} heads of {pd.conv_dim // pd.transformer_nheads}"
+        f" over S={S}) on {card}; {int(res['segments']['valid'].sum())} "
+        f"segments, {what}; launches {counts}")
+    return {"dense": counts}
 
 
 class StubTokenizer:
@@ -484,8 +817,6 @@ def time_decode(torch, gen, batch):
     busy share of the decode steps). Host clock around synchronized work;
     the busy share is the device time of a profiled chunk of the same steps
     over that chunk's host time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     temp = torch.zeros(batch["tok_ids"].shape[0], device="cuda")
     rng = torch.Generator(device="cuda").manual_seed(0)
     gen.prefill(batch)  # warm-up
@@ -500,19 +831,13 @@ def time_decode(torch, gen, batch):
     toks, last = gen.decode_chunk(logits, cache, temp, TIMED_STEPS, rng)
     toks.cpu()
     step_ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        toks, _ = gen.decode_chunk(last, cache, temp, 8, rng)
-        toks.cpu()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                  if e.device_type == DeviceType.CUDA)
-    if busy_us <= 0:
-        fail("torch.profiler recorded no device events in the decode steps")
+    busy_us, wall_us = profiled_us(
+        lambda: gen.decode_chunk(last, cache, temp, 8, rng)[0].cpu(),
+        "the decode steps")
     return prefill_ms, step_ms, busy_us / wall_us
 
 
-def serving_slice(torch, np, card, int4_matvec, swin_attention, msdeform):
+def serving_slice(torch, np, card):
     """Phase 6; returns the kernels' launches on the serving path."""
     import dataclasses
     from psalm_tpu_torch import PSALMConfig
@@ -556,7 +881,7 @@ def serving_slice(torch, np, card, int4_matvec, swin_attention, msdeform):
     torch.cuda.synchronize()
 
     # the main path: counters zeroed just before, read just after
-    int4_matvec.LAUNCHES = swin_attention.LAUNCHES = msdeform.LAUNCHES = 0
+    zero_counts()
     gen.prefills = gen.decode_steps = 0
     results, errors = {}, []
 
@@ -582,10 +907,10 @@ def serving_slice(torch, np, card, int4_matvec, swin_attention, msdeform):
     mm_toks = gen.generate(mm_batch, max_new_tokens=NEW_TOKENS,
                            chunk_size=DECODE_CHUNK)
     mm_s = time.perf_counter() - t0
-    launches = {"K1": msdeform.LAUNCHES, "K3": swin_attention.LAUNCHES,
-                "K4": int4_matvec.LAUNCHES}
+    launches = launch_counts()
     expect = {"K1": 0, "K3": sum(cfg.swin.depths) * gen.prefills,
-              "K4": 6 * cfg.phi.num_layers * gen.decode_steps}
+              "K4": 6 * cfg.phi.num_layers * gen.decode_steps,
+              "K5 causal": 0, "K5 non-causal": 0}
     log(f"chat: {CHAT_THREADS} requests of {NEW_TOKENS} tokens in "
         f"{chat_s:.2f} s ({chat_prefills} prefills, {chat_steps} decode steps,"
         f" {CHAT_THREADS * NEW_TOKENS / chat_s:.1f} tok/s); multimodal "
@@ -664,7 +989,8 @@ def main():
         f"{torch.cuda.device_count()} device(s), device 0: {kind}")
 
     log("== build")
-    from psalm_tpu_torch.ops import _build, int4_matvec, msdeform, swin_attention
+    from psalm_tpu_torch.ops import (_build, flash_attention, int4_matvec,
+                                     msdeform, swin_attention)
     t0 = time.perf_counter()
     lib_path = _build.build()
     _build.library()
@@ -675,17 +1001,29 @@ def main():
     check_k1(torch, msdeform, records)
     check_k3(torch, swin_attention, records)
     check_k4(torch, int4_matvec, records)
+    check_k5(torch, flash_attention, records)
 
     log("== small slice (tiny config, f32: card kernels vs CPU plain)")
     check_small_slice(torch, np)
+    check_small_tasks(torch, np)
 
     log("== eval slice (PSALMConfig(), bf16, EvalRunner.infer)")
-    eval_launches = eval_slice(torch, np, card, msdeform, swin_attention)
+    eval_launches = eval_slice(torch, np, card)
     torch.cuda.empty_cache()
 
     log("== serving slice (PSALMConfig(), int4 'pallas' Phi, bf16, ModelWorker)")
-    serve_launches = serving_slice(torch, np, card, int4_matvec,
-                                   swin_attention, msdeform)
+    serve_launches = serving_slice(torch, np, card)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    log("== eval tasks (PSALMConfig(), bf16, use_flash, EvalRunner.infer)")
+    paths = {"eval": eval_launches, "serve": serve_launches}
+    paths.update(task_slice(torch, np, card))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    log("== dense pixel decoder (panoptic, attention_mode='dense', use_flash)")
+    paths.update(dense_slice(torch, np, card))
 
     bad = [m for m in sys.modules if m in ("jax", "flax", "optax")
            or m == "psalm_tpu" or m.startswith("psalm_tpu.")]
@@ -695,8 +1033,7 @@ def main():
     kernels = []
     for r in records:
         k = r["kernel"]
-        by_path = {"eval": eval_launches.get(k, 0),
-                   "serve": serve_launches.get(k, 0)}
+        by_path = {path: counts.get(k, 0) for path, counts in paths.items()}
         kernels.append({
             "name": r["name"], "route": "cuda", "source": SOURCES[k][0],
             "replaces": SOURCES[k][1], "launches": sum(by_path.values()),

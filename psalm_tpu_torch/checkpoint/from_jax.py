@@ -10,6 +10,11 @@ torch state dict, whose keys are the port's parameter names:
   split q/k/v Dense                  -> packed in_proj_weight / in_proj_bias
   batch_stats mean / var             -> running_mean / running_var
 
+The pixel decoder's encoder layers carry whichever attention they hold: the
+deformable one (``sampling_offsets``, ``attention_weights``, ``value_proj``,
+``output_proj``) or, in ``attention_mode="dense"``, ``DenseSelfAttention``
+(``q_proj``, ``k_proj``, ``value_proj``, ``output_proj``).
+
 and the Phi linears quantized by ``psalm_tpu/models/quant.py``:
 
   kernel_q int8 [in, out] (QuantDense) -> int8 weight [out, in], transposed
@@ -142,9 +147,8 @@ def _pixel_decoder(sd: StateDict, p: Dict[str, Any], enc_layers: int,
         _norm(sd, f"{pre}.input_proj.{i}.1", p[f"input_proj_{i}_norm"])
     for i in range(enc_layers):
         t, lp = p[f"encoder_layer_{i}"], f"{pre}.transformer.encoder.layers.{i}"
-        for n in ("sampling_offsets", "attention_weights", "value_proj",
-                  "output_proj"):
-            _dense(sd, f"{lp}.self_attn.{n}", t["self_attn"][n])
+        for n, dense in t["self_attn"].items():
+            _dense(sd, f"{lp}.self_attn.{n}", dense)
         _norm(sd, f"{lp}.norm1", t["norm1"])
         _norm(sd, f"{lp}.norm2", t["norm2"])
         _dense(sd, f"{lp}.linear1", t["linear1"])

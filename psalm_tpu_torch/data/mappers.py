@@ -1,7 +1,9 @@
 """Image preprocessing of the chat path (host side, numpy and PIL).
 
-Counterpart of ``psalm_tpu/data/mappers.py``'s ``resize_shortest_edge_shape``
-and ``ImageMapper.transform_image``: the reference's
+Counterpart of ``psalm_tpu/data/mappers.py``'s ``resize_shortest_edge_shape``,
+``ImageMapper.transform_image`` and ``ImageMapper.sample_region_points``
+(the region task's visual-prompt points). ``transform_image`` is the
+reference's
 ResizeShortestEdge(S, max_size=S) + FixedSizeCrop(S x S), which for
 max_size == short edge is "scale the longest side to S, pad bottom-right
 with 128", then ImageNet mean/std normalization and a padding mask. PIL is
@@ -63,3 +65,22 @@ class ImageMapper:
         return ProcessedImage(image=image_out, padding_mask=padding_mask,
                               resized_hw=(nh, nw), original_hw=(h, w),
                               scale=nh / h)
+
+    @staticmethod
+    def sample_region_points(mask: np.ndarray, num_points: int,
+                             rng: np.random.Generator) -> np.ndarray:
+        """Sample in-mask pixel coordinates with repeat, normalized to the
+        ORIGINAL mask frame, as (x, y) in [0,1] — rand_sample_repeat +
+        nonzero()/wh + flip (context_cluster.py:31-40, :351-363)."""
+        ys, xs = np.nonzero(mask)
+        n = len(ys)
+        if n == 0:
+            return np.zeros((num_points, 2), np.float32)
+        if n < num_points:
+            extra = rng.integers(0, n, num_points - n)
+            idx = np.concatenate([np.arange(n), extra])
+        else:
+            idx = rng.permutation(n)[:num_points]
+        h, w = mask.shape
+        pts = np.stack([xs[idx] / w, ys[idx] / h], axis=-1)
+        return pts.astype(np.float32)

@@ -1,9 +1,11 @@
 """Crop-then-resize eval geometry as interpolation matrices.
 
 Counterpart of ``psalm_tpu/eval/geometry.py``. The reference's order for
-the panoptic head: upsample mask logits x4 to the padded frame, crop the
-un-padded content [0:nh, 0:nw], resize bilinearly to the original (H, W),
-then run the heads at (H, W). Each step is linear and separable per axis, so
+every head but the semantic task's: upsample mask logits x4 to the padded
+frame, crop the un-padded content [0:nh, 0:nw], resize bilinearly to the
+original (H, W), then run the heads at (H, W) (``crop_resize_to_original``).
+The semantic task runs its head at the padded frame and then crops and
+resizes (``resize_to_original``). Each step is linear and separable per axis, so
 each axis is one matrix: crop-and-resize ``M`` [bucket, S] composed with the
 static x4 upsample ``U`` [S, S/4]. Rows past the image's true size are zero
 ("bucket" is a fixed upper bound on original sizes).
@@ -78,6 +80,19 @@ def crop_resize_to_original(x: torch.Tensor, content_hw, original_hw,
     cw = crop_resize_matrix(content_hw[1], original_hw[1], w, padded_size,
                             bucket_hw[1], x.device)
     return torch.matmul(torch.matmul(ch, x), cw.T)
+
+
+def resize_to_original(x: torch.Tensor, content_hw, original_hw,
+                       bucket_hw) -> torch.Tensor:
+    """The crop [0:nh, 0:nw] and bilinear resize to (H, W) alone, for maps
+    already at the padded frame (the semantic task's head output):
+    [..., S, S] -> [..., Hb, Wb] f32, zero past the original (H, W)."""
+    x = x.float()
+    mh = interp_matrix(content_hw[0], original_hw[0], x.shape[-2],
+                       bucket_hw[0], x.device)
+    mw = interp_matrix(content_hw[1], original_hw[1], x.shape[-1],
+                       bucket_hw[1], x.device)
+    return torch.matmul(torch.matmul(mh, x), mw.T)
 
 
 def valid_mask(original_hw, bucket_hw, device=None) -> torch.Tensor:

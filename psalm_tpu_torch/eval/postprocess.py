@@ -1,11 +1,14 @@
-"""Panoptic and semantic inference heads, vectorized.
+"""The segmentation inference heads, vectorized.
 
-Counterpart of ``psalm_tpu/eval/postprocess.py::semantic_inference`` and
-``panoptic_inference``: the reference's greedy panoptic merge loop expressed
+Counterpart of ``psalm_tpu/eval/postprocess.py``: ``semantic_inference``;
+``panoptic_inference``, the reference's greedy panoptic merge loop expressed
 with static shapes (per-pixel argmax over score-weighted masks, per-query
 acceptance tests, stuff classes merged onto their first accepted query),
 which gives the greedy loop's result because the argmax partition makes the
-queries' pixel sets disjoint.
+queries' pixel sets disjoint; and the instance, referring
+(``seg_instance_inference``) and region heads: top-k scores, sigmoid masks
+thresholded at 0.5, and each score times its mask's mean probability inside
+the mask.
 """
 
 from __future__ import annotations
@@ -84,3 +87,47 @@ def panoptic_inference(
         "valid": is_canonical,
     }
     return panoptic_seg, info
+
+
+def _mask_scores(masks: torch.Tensor):
+    """(hard masks > 0.5, mean probability inside each) of [k, H, W]
+    probabilities."""
+    hard = masks > 0.5
+    return hard, (masks * hard).sum((1, 2)) / (hard.sum((1, 2)) + 1e-6)
+
+
+def instance_inference(class_logits: torch.Tensor, mask_logits: torch.Tensor,
+                       topk: int, is_thing: Optional[torch.Tensor] = None
+                       ) -> Dict[str, torch.Tensor]:
+    """class_logits [Q, K]; mask_logits [Q, H, W]. The top ``topk`` (query,
+    class) scores: dict(masks [k, H, W] bool, scores [k], classes [k],
+    keep [k] bool, the thing filter)."""
+    num_classes = class_logits.shape[1] - 1
+    scores_all = torch.softmax(class_logits.float(), -1)[:, :-1]
+    scores, idx = torch.topk(scores_all.reshape(-1), topk)
+    labels = idx % num_classes
+    hard, mask_scores = _mask_scores(
+        torch.sigmoid(mask_logits.float())[idx // num_classes])
+    keep = (torch.ones(topk, dtype=torch.bool, device=labels.device)
+            if is_thing is None else is_thing.to(labels.device)[labels])
+    return {"masks": hard, "scores": scores * mask_scores,
+            "classes": labels.int(), "keep": keep}
+
+
+def seg_instance_inference(SEG_logits: torch.Tensor, mask_logits: torch.Tensor,
+                           topk: int) -> Dict[str, torch.Tensor]:
+    """The referring head: SEG_logits [Q, 1]; mask_logits [Q, H, W] ->
+    dict(masks [k, H, W] bool, scores [k], query [k])."""
+    scores, idx = torch.topk(torch.sigmoid(SEG_logits.float()).reshape(-1),
+                             topk)
+    hard, mask_scores = _mask_scores(torch.sigmoid(mask_logits.float())[idx])
+    return {"masks": hard, "scores": scores * mask_scores, "query": idx.int()}
+
+
+def region_inference(region_logits: torch.Tensor, mask_logits: torch.Tensor
+                     ) -> Dict[str, torch.Tensor]:
+    """region_logits [R, Q]; mask_logits [Q, H, W] ->
+    dict(masks [Q, H, W] bool, scores [Q, R])."""
+    hard, mask_scores = _mask_scores(torch.sigmoid(mask_logits.float()))
+    scores = torch.sigmoid(region_logits.float())
+    return {"masks": hard, "scores": (scores * mask_scores[None, :]).T}

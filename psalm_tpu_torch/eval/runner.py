@@ -1,13 +1,20 @@
-"""Eval runner for the COCO-panoptic task: the model forward, the reference's
-crop-then-head geometry and the panoptic and semantic heads, per image.
+"""Eval runner: the model forward, the reference's crop-then-head geometry
+and the task's inference head, per image.
 
-Counterpart of ``psalm_tpu/eval/runner.py::EvalRunner`` for
-``SegTask.PANOPTIC``. ``infer`` takes the same numpy batch dict (the
-splicer's arrays, ``images``, ``padding_mask`` and optionally ``resized_hw``
-and ``original_hw``) and returns the same results: ``panoptic_seg`` and
-``sem_seg`` as per-image lists cropped to each original (H, W), and
-``segments`` as [B, Q] arrays. The mask logits are restored to the original
-pixel grid with interpolation matrices on a fixed "bucket" grid
+Counterpart of ``psalm_tpu/eval/runner.py::EvalRunner`` for the tasks
+``PANOPTIC``, ``SEMANTIC``, ``INSTANCE``, ``REFERRING`` and ``REGION``
+(``cfg.seg_task``), with the JAX runner's conditioning flags per task.
+``infer`` takes the same numpy batch dict (the splicer's arrays, ``images``,
+``padding_mask``, optionally ``resized_hw`` and ``original_hw``, and for the
+region task ``region_points`` and ``region_valid``) and returns the same
+results, maps cropped to each original (H, W) as per-image lists:
+  * PANOPTIC: ``panoptic_seg``, ``segments`` ([B, Q] arrays), ``sem_seg``;
+  * SEMANTIC: ``sem_seg``, from the head at the padded frame, restored after
+    (the reference's ``sem_seg_postprocess_before_inference=False``);
+  * INSTANCE / REFERRING / REGION: ``instances`` / ``referring`` /
+    ``region``, dicts whose ``masks`` are per-image [k, H, W] lists.
+Except for SEMANTIC, the mask logits are restored to the original pixel grid
+with interpolation matrices on a fixed "bucket" grid
 (``psalm_tpu_torch/eval/geometry.py``) before the heads run, in f32.
 
 The JAX runner's window-clamp telemetry and radius auto-raise are not
@@ -24,6 +31,7 @@ import torch
 
 from psalm_tpu_torch.config import PSALMConfig, SegTask
 from psalm_tpu_torch.eval import geometry, postprocess
+from psalm_tpu_torch.ops.sampling import resize_bilinear
 
 # arrays of the batch that the device never reads
 _HOST_ONLY = {"dataset_type", "image_id", "num_class_names", "gt_masks",
@@ -38,41 +46,114 @@ def bucket_for_sizes(sizes, multiple: int = 128) -> Tuple[int, int]:
     return (up(sizes[:, 0].max()), up(sizes[:, 1].max()))
 
 
-def synthetic_panoptic_batch(cfg: PSALMConfig, B: int, num_classes: int,
-                             content_hw: Tuple[int, int],
-                             original_hw: Tuple[int, int],
-                             tokens_per_class: int = 3,
-                             seed: int = 0) -> Dict[str, np.ndarray]:
-    """A COCO-panoptic eval batch at the real sequence shape, with random
-    images: ``num_classes`` class names of ``tokens_per_class`` tokens,
-    spliced with the numpy splicer (``data/splicer.py``) and padded to the
-    eval CLIs' 128-multiple bucket (``__graft_entry__._panoptic_batch``), and the
-    non-square geometry of ``bench.py`` (content ``content_hw`` in the padded
-    frame, original size ``original_hw``)."""
+def _spliced_batch(cfg: PSALMConfig, ids, B: int,
+                   content_hw: Tuple[int, int], original_hw: Tuple[int, int],
+                   rng: np.random.Generator, extra_tokens: int = 0,
+                   **splice_kw) -> Dict[str, np.ndarray]:
+    """B copies of the prompt ``ids`` spliced with the numpy splicer
+    (``data/splicer.py``) and padded to the eval CLIs' 128-multiple bucket
+    (``__graft_entry__._panoptic_batch``), with random images and the
+    non-square geometry of ``bench.py`` (content ``content_hw`` in the
+    padded frame, original size ``original_hw``). ``extra_tokens`` counts
+    the class-name and sentence tokens of <cls> and <refer>."""
     from psalm_tpu_torch.data.constants import (CLS_TOKEN_INDEX,
                                                 IMAGE_TOKEN_INDEX,
+                                                REFER_TOKEN_INDEX,
                                                 SEG_TOKEN_INDEX)
     from psalm_tpu_torch.data.splicer import splice, stack_samples
     S = cfg.image_size
     n_img = (S // 64) ** 2
     nq = cfg.mask_decoder.num_queries
-    ids = ([101, IMAGE_TOKEN_INDEX, 102] + [CLS_TOKEN_INDEX] * num_classes
-           + [103, SEG_TOKEN_INDEX, 104])
-    rng = np.random.default_rng(seed)
-    cls_ids = rng.integers(5, 200, size=num_classes * tokens_per_class)
-    cls_idx = np.repeat(np.arange(num_classes), tokens_per_class)
-    n_real = n_img + nq + num_classes * tokens_per_class + 8
+    expanded = (IMAGE_TOKEN_INDEX, SEG_TOKEN_INDEX, CLS_TOKEN_INDEX,
+                REFER_TOKEN_INDEX)
+    n_real = (sum(t not in expanded for t in ids) + n_img + nq
+              + extra_tokens)
     pad_len = -(-n_real // 128) * 128
     batch = stack_samples([
         splice(ids, None, num_image_tokens=n_img, num_seg_queries=nq,
-               pad_len=pad_len, class_name_ids=cls_ids, cls_indices=cls_idx)
-        for _ in range(B)])
+               pad_len=pad_len, **splice_kw) for _ in range(B)])
     batch["images"] = rng.standard_normal((B, S, S, 3)).astype(np.float32)
     pad = np.ones((S, S), bool)
     pad[:content_hw[0], :content_hw[1]] = False
     batch["padding_mask"] = np.tile(pad, (B, 1, 1))
     batch["resized_hw"] = np.tile(np.asarray(content_hw), (B, 1))
     batch["original_hw"] = np.tile(np.asarray(original_hw), (B, 1))
+    return batch
+
+
+def synthetic_panoptic_batch(cfg: PSALMConfig, B: int, num_classes: int,
+                             content_hw: Tuple[int, int],
+                             original_hw: Tuple[int, int],
+                             tokens_per_class: int = 3,
+                             seed: int = 0) -> Dict[str, np.ndarray]:
+    """A COCO-panoptic eval batch at the real sequence shape: ``num_classes``
+    class names of ``tokens_per_class`` random tokens (``_spliced_batch``).
+    The semantic and instance tasks take the same batch."""
+    from psalm_tpu_torch.data.constants import (CLS_TOKEN_INDEX,
+                                                IMAGE_TOKEN_INDEX,
+                                                SEG_TOKEN_INDEX)
+    ids = ([101, IMAGE_TOKEN_INDEX, 102] + [CLS_TOKEN_INDEX] * num_classes
+           + [103, SEG_TOKEN_INDEX, 104])
+    rng = np.random.default_rng(seed)
+    cls_ids = rng.integers(5, 200, size=num_classes * tokens_per_class)
+    cls_idx = np.repeat(np.arange(num_classes), tokens_per_class)
+    return _spliced_batch(cfg, ids, B, content_hw, original_hw, rng,
+                          extra_tokens=len(cls_ids), class_name_ids=cls_ids,
+                          cls_indices=cls_idx)
+
+
+def synthetic_referring_batch(cfg: PSALMConfig, B: int,
+                              content_hw: Tuple[int, int],
+                              original_hw: Tuple[int, int],
+                              refer_tokens: int = 12,
+                              seed: int = 0) -> Dict[str, np.ndarray]:
+    """A referring eval batch: the referring prompt's shape, a sentence of
+    ``refer_tokens`` random tokens at <refer> (``token_refer_id``)."""
+    from psalm_tpu_torch.data.constants import (IMAGE_TOKEN_INDEX,
+                                                REFER_TOKEN_INDEX,
+                                                SEG_TOKEN_INDEX)
+    ids = [101, IMAGE_TOKEN_INDEX, 102, REFER_TOKEN_INDEX, 103,
+           SEG_TOKEN_INDEX, 104]
+    rng = np.random.default_rng(seed)
+    refer = rng.integers(5, 200, size=refer_tokens)
+    return _spliced_batch(cfg, ids, B, content_hw, original_hw, rng,
+                          extra_tokens=refer_tokens, token_refer_id=refer)
+
+
+def synthetic_region_batch(cfg: PSALMConfig, B: int,
+                           content_hw: Tuple[int, int],
+                           original_hw: Tuple[int, int], regions: int = 4,
+                           valid_regions: Optional[int] = None,
+                           points: int = 256,
+                           seed: int = 0) -> Dict[str, np.ndarray]:
+    """A region eval batch: ``regions`` slots of ``points`` points each,
+    sampled by ``ImageMapper.sample_region_points`` from random rectangles
+    inside the content, of which the first ``valid_regions`` (all by
+    default) are real prompts with a <region> token each, as the region
+    dataset pads its prompts to a fixed count."""
+    from psalm_tpu_torch.data.constants import (IMAGE_TOKEN_INDEX,
+                                                REGION_TOKEN_INDEX,
+                                                SEG_TOKEN_INDEX)
+    from psalm_tpu_torch.data.mappers import ImageMapper
+    n_valid = regions if valid_regions is None else valid_regions
+    ids = ([101, IMAGE_TOKEN_INDEX, 102] + [REGION_TOKEN_INDEX, 105] * n_valid
+           + [103, SEG_TOKEN_INDEX, 104])
+    rng = np.random.default_rng(seed)
+    batch = _spliced_batch(cfg, ids, B, content_hw, original_hw, rng,
+                           num_regions=n_valid)
+    S = cfg.image_size
+    pts = np.zeros((B, regions, points, 2), np.float32)
+    valid = np.zeros((B, regions), bool)
+    for b in range(B):
+        for r in range(n_valid):
+            y0, x0 = (rng.integers(0, c // 2) for c in content_hw)
+            h, w = (rng.integers(c // 8, c // 2) for c in content_hw)
+            mask = np.zeros((S, S), bool)
+            mask[y0:y0 + h, x0:x0 + w] = True
+            pts[b, r] = ImageMapper.sample_region_points(mask, points, rng)
+            valid[b, r] = True
+    batch["region_points"] = pts
+    batch["region_valid"] = valid
     return batch
 
 
@@ -93,10 +174,7 @@ def _content_hw(batch: Dict[str, np.ndarray], S: int) -> np.ndarray:
 class EvalRunner:
     def __init__(self, model, cfg: PSALMConfig, num_class_names=None,
                  is_thing=None, bucket_hw: Optional[Tuple[int, int]] = None):
-        if SegTask(cfg.seg_task.value) is not SegTask.PANOPTIC:
-            raise NotImplementedError(
-                f"seg_task {cfg.seg_task.value!r}: only the panoptic eval "
-                "path is ported")
+        self.task = SegTask(cfg.seg_task.value)
         self.model = model
         self.cfg = cfg
         self.device = next(model.parameters()).device
@@ -122,38 +200,84 @@ class EvalRunner:
         return {k: torch.as_tensor(np.asarray(v)).to(self.device)
                 for k, v in batch.items() if k not in _HOST_ONLY}
 
+    @staticmethod
+    def _stack(per_image):
+        """[{key: tensor}] per image -> {key: stacked tensor}."""
+        return {k: torch.stack([d[k] for d in per_image]) for k in per_image[0]}
+
+    def _label_map(self, x: torch.Tensor) -> torch.Tensor:
+        return x.to(torch.uint8) if self.num_class_names <= 256 else x.int()
+
     @torch.no_grad()
     def _infer_device(self, tbatch: Dict[str, torch.Tensor], content: np.ndarray,
                       original: np.ndarray) -> Dict[str, Any]:
-        out = self.model(tbatch, num_class_names=self.num_class_names)
+        task = self.task
+        out = self.model(
+            tbatch,
+            use_class_names=task in (SegTask.PANOPTIC, SegTask.INSTANCE,
+                                     SegTask.SEMANTIC),
+            use_seg_embedding=task is SegTask.REFERRING,
+            use_regions=task is SegTask.REGION,
+            max_regions=(tbatch["region_points"].shape[1]
+                         if "region_points" in tbatch else 0),
+            num_class_names=self.num_class_names)
         masks = out["pred_masks"].float()  # [B, Q, S/4, S/4]
-        logits = out["pred_class_name_logits"]
         B, Q = masks.shape[:2]
         S = self.cfg.image_size
-        is_thing = torch.as_tensor(self.is_thing, device=self.device)
-        pans, ids, cats, things, valids, sems = [], [], [], [], [], []
+        bucket = self.bucket_hw
+
+        if task is SegTask.SEMANTIC:
+            # head at the padded frame, then crop and resize: the class mix
+            # commutes with the per-pixel linear restore, so the restore runs
+            # on the Q sigmoid masks
+            up = resize_bilinear(masks.reshape(B * Q, *masks.shape[2:], 1),
+                                 (S, S)).reshape(B, Q, S, S)
+            probs = torch.softmax(out["pred_class_name_logits"].float(),
+                                  -1)[..., :-1]
+            sems = [torch.einsum("qk,qhw->khw", probs[b],
+                                 geometry.resize_to_original(
+                                     torch.sigmoid(up[b]), content[b],
+                                     original[b], bucket)).argmax(0)
+                    for b in range(B)]
+            return {"sem_seg": self._label_map(torch.stack(sems))}
+
+        def restored(b):  # mask logits on the original grid, and its mask
+            return (geometry.crop_resize_to_original(masks[b], content[b],
+                                                     original[b], S, bucket),
+                    geometry.valid_mask(original[b], bucket, self.device))
+
+        if task is SegTask.PANOPTIC:
+            logits = out["pred_class_name_logits"]
+            is_thing = torch.as_tensor(self.is_thing, device=self.device)
+            pans, infos, sems = [], [], []
+            for b in range(B):
+                mo, valid = restored(b)
+                pan, info = postprocess.panoptic_inference(logits[b], mo,
+                                                           is_thing, valid)
+                pans.append(pan.to(torch.uint8) if Q <= 255 else pan)
+                infos.append(info)
+                sems.append(postprocess.semantic_inference(logits[b],
+                                                           mo).argmax(0))
+            return {"panoptic_seg": torch.stack(pans),
+                    "segments": self._stack(infos),
+                    "sem_seg": self._label_map(torch.stack(sems))}
+
+        results = []
         for b in range(B):
-            mo = geometry.crop_resize_to_original(masks[b], content[b],
-                                                  original[b], S, self.bucket_hw)
-            valid = geometry.valid_mask(original[b], self.bucket_hw, self.device)
-            pan, info = postprocess.panoptic_inference(logits[b], mo, is_thing,
-                                                       valid)
-            pans.append(pan)
-            ids.append(info["id"])
-            cats.append(info["category"])
-            things.append(info["isthing"])
-            valids.append(info["valid"])
-            sems.append(postprocess.semantic_inference(logits[b], mo).argmax(0))
-        pan = torch.stack(pans)
-        sem = torch.stack(sems)
-        return {
-            "panoptic_seg": pan.to(torch.uint8) if Q <= 255 else pan,
-            "segments": {"id": torch.stack(ids), "category": torch.stack(cats),
-                         "isthing": torch.stack(things),
-                         "valid": torch.stack(valids)},
-            "sem_seg": (sem.to(torch.uint8) if self.num_class_names <= 256
-                        else sem.int()),
-        }
+            mo, valid = restored(b)
+            mo = mo * valid[None].float()
+            if task is SegTask.INSTANCE:
+                results.append(postprocess.instance_inference(
+                    out["pred_class_name_logits"][b], mo, topk=Q))
+            elif task is SegTask.REFERRING:
+                results.append(postprocess.seg_instance_inference(
+                    out["pred_SEG_logits"][b], mo, topk=Q))
+            else:
+                results.append(postprocess.region_inference(
+                    out["pred_region_logits"][b], mo))
+        key = {SegTask.INSTANCE: "instances", SegTask.REFERRING: "referring",
+               SegTask.REGION: "region"}[task]
+        return {key: self._stack(results)}
 
     def infer(self, batch: Dict[str, np.ndarray]) -> Dict[str, Any]:
         if "original_hw" in batch:
@@ -164,19 +288,25 @@ class EvalRunner:
         else:  # the reference's .get fallback: the content extent
             original = content
         out = self._infer_device(self.stage(batch), content, original)
-        out = {"panoptic_seg": out["panoptic_seg"].cpu().numpy(),
-               "segments": {k: v.cpu().numpy()
-                            for k, v in out["segments"].items()},
-               "sem_seg": out["sem_seg"].cpu().numpy()}
+        out = {k: ({n: t.cpu().numpy() for n, t in v.items()}
+                   if isinstance(v, dict) else v.cpu().numpy())
+               for k, v in out.items()}
         return self._crop_to_original(out, original)
 
     @staticmethod
     def _crop_to_original(out: Dict[str, Any], original_hw: np.ndarray
                           ) -> Dict[str, Any]:
-        """Slice bucket-resolution maps to each image's true (H, W); per-image
-        shapes differ, so the maps become lists indexed by b."""
+        """Slice bucket-resolution maps and masks to each image's true
+        (H, W); per-image shapes differ, so they become lists indexed by b
+        (scores and classes stay stacked arrays)."""
         oh = np.asarray(original_hw).reshape(-1, 2)
         for key in ("panoptic_seg", "sem_seg"):
-            x = out[key]
-            out[key] = [x[b, :oh[b, 0], :oh[b, 1]] for b in range(len(x))]
+            if key in out:
+                x = out[key]
+                out[key] = [x[b, :oh[b, 0], :oh[b, 1]] for b in range(len(x))]
+        for key in ("instances", "referring", "region"):
+            if key in out:
+                x = out[key]["masks"]
+                out[key]["masks"] = [x[b, :, :oh[b, 0], :oh[b, 1]]
+                                     for b in range(len(x))]
         return out

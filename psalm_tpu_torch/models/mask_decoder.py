@@ -6,9 +6,11 @@ the three multi-scale levels, with prediction heads before the first round
 and after each. The attention mask of each round is the previous round's mask
 logits, resized bilinearly to the level and blocked where sigmoid < 0.5
 (fully blocked rows unblocked), in f32. Both the woconcat path (the released
-model's) and the concat path (the [SEG] row prepended) are ported. The
-region-prompt head (``REGION_proj``) is loaded but not run: the panoptic path
-has no region prompts.
+model's) and the concat path (the [SEG] row prepended) are ported. The heads
+give the [SEG] logits (referring), the class-name logits (panoptic, semantic,
+instance) and the region logits [B, R, Q] (region prompts, ``REGION_proj``),
+each only when its conditioning is given; invalid class names and regions
+get -1e9.
 
 Parameter names are the released checkpoint's (``predictor.*``).
 """
@@ -102,7 +104,7 @@ class MaskDecoder(nn.Module):
 
     def _prediction_heads(self, output, mask_features, attn_size,
                           SEG_embedding, class_name_embedding,
-                          class_name_valid):
+                          class_name_valid, region_embedding, region_valid):
         """output [B, Q, D]; mask_features [B, H, W, Dm]."""
         dec = self.decoder_norm(output.float()).to(output.dtype)
 
@@ -118,6 +120,14 @@ class MaskDecoder(nn.Module):
                 logits = torch.where(class_name_valid[:, None, :], logits,
                                      torch.full_like(logits, NEG_INF))
             class_name_class = logits
+        region_class = None
+        if region_embedding is not None:
+            logits = torch.einsum("brd,bld->brl", region_embedding,
+                                  self.REGION_proj(dec))
+            if region_valid is not None:
+                logits = torch.where(region_valid[:, :, None], logits,
+                                     torch.full_like(logits, NEG_INF))
+            region_class = logits
 
         mask_embed = self.mask_embed(dec)
         outputs_mask = torch.einsum("bqc,bhwc->bqhw", mask_embed,
@@ -134,15 +144,18 @@ class MaskDecoder(nn.Module):
         attn_bias = torch.where(
             blocked, torch.tensor(NEG_INF, dtype=torch.float32, device=m.device),
             torch.zeros((), dtype=torch.float32, device=m.device))[:, None]
-        return SEG_class, class_name_class, outputs_mask, attn_bias
+        return SEG_class, class_name_class, outputs_mask, region_class, attn_bias
 
     def forward(self, x: Sequence[torch.Tensor], mask_features: torch.Tensor,
                 seg_query: torch.Tensor,
                 SEG_embedding: Optional[torch.Tensor] = None,
                 class_name_embedding: Optional[torch.Tensor] = None,
-                class_name_valid: Optional[torch.Tensor] = None):
+                class_name_valid: Optional[torch.Tensor] = None,
+                region_embedding: Optional[torch.Tensor] = None,
+                region_valid: Optional[torch.Tensor] = None):
         """x: 3 NHWC level features (res5-, res4-, res3-scale);
-        mask_features [B, H/4, W/4, Dm]; seg_query [B, Q, D]."""
+        mask_features [B, H/4, W/4, Dm]; seg_query [B, Q, D];
+        region_embedding [B, R, D] with region_valid [B, R] bool."""
         c = self.cfg
         if len(x) != c.num_feature_levels:
             raise ValueError(f"{len(x)} levels, expected {c.num_feature_levels}")
@@ -158,7 +171,7 @@ class MaskDecoder(nn.Module):
         def heads(out, lvl, seg_emb):
             return self._prediction_heads(
                 out, mask_features, sizes[lvl], seg_emb, class_name_embedding,
-                class_name_valid)
+                class_name_valid, region_embedding, region_valid)
 
         concat = c.seg_concat
         qe = self.SEG_query_embed.weight if concat else self.query_embed.weight
@@ -166,8 +179,8 @@ class MaskDecoder(nn.Module):
         output = seg_query
         seg_emb = SEG_embedding
         preds = []
-        SEG_cls, name_cls, masks, attn_bias = heads(output, 0, seg_emb)
-        preds.append((SEG_cls, name_cls, masks))
+        *pred, attn_bias = heads(output, 0, seg_emb)
+        preds.append(pred)
         for i in range(c.dec_layers):
             lvl = i % c.num_feature_levels
             cross = self.transformer_cross_attention_layers[i]
@@ -187,16 +200,10 @@ class MaskDecoder(nn.Module):
             else:
                 output = ffn(selfa(cross(output, src[lvl], attn_bias, pos[lvl],
                                          query_pos), query_pos))
-            SEG_cls, name_cls, masks, attn_bias = heads(
-                output, (i + 1) % c.num_feature_levels, seg_emb)
-            preds.append((SEG_cls, name_cls, masks))
-        SEG_cls, name_cls, masks = preds[-1]
-        return {
-            "pred_SEG_logits": SEG_cls,
-            "pred_class_name_logits": name_cls,
-            "pred_masks": masks,
-            "aux_outputs": [
-                {"pred_SEG_logits": a, "pred_class_name_logits": b,
-                 "pred_masks": m}
-                for (a, b, m) in preds[:-1]],
-        }
+            *pred, attn_bias = heads(output, (i + 1) % c.num_feature_levels,
+                                     seg_emb)
+            preds.append(pred)
+        keys = ("pred_SEG_logits", "pred_class_name_logits", "pred_masks",
+                "pred_region_logits")
+        return {**dict(zip(keys, preds[-1])),
+                "aux_outputs": [dict(zip(keys, p)) for p in preds[:-1]]}

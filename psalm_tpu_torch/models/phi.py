@@ -6,10 +6,18 @@ branches off one input LayerNorm, partial rotary embedding over the first
 ``rotary_dim`` channels of each head (rotate-half convention, theta 10000),
 ``gelu_new`` (tanh) MLP, a final LayerNorm. Attention logits and softmax are
 f32 with an additive f32 bias of -1e9 for causal and padding masking, the
-einsum branch of the JAX package in plain PyTorch (JAX's ``use_flash``
-branch, a stock Pallas kernel, is still to port as K5). The linears are
+einsum branch of the JAX package in plain PyTorch. The linears are
 ``Dense``, or the int8 / int4 layers of ``models/quant.py`` when
 ``cfg.quant_bits`` is 8 or 4.
+
+With ``use_flash`` (off by default, as in JAX), a full-sequence forward
+without a cache and of more than one token takes JAX's flash branch instead:
+kernel K5 (``ops/flash_attention.py``), causal, scale 1/sqrt(head_dim), with
+q, k and v in the model's dtype and no padding mask. Sequences are
+right-padded, so every valid row attends to exactly the keys it attends to
+in the einsum branch and agrees with it; pad query rows differ (the einsum
+branch masks the pad keys, the flash branch attends to the earlier ones),
+and nothing downstream reads them.
 
 The KV cache (``KVCache``) keeps a position per row, so right-padded
 prompts decode exactly:
@@ -43,6 +51,7 @@ from torch import nn
 from psalm_tpu_torch.config import PhiConfig
 from psalm_tpu_torch.models.layers import LayerNorm
 from psalm_tpu_torch.models.quant import make_dense
+from psalm_tpu_torch.ops.flash_attention import flash_attention
 
 NEG = -1e9
 
@@ -110,9 +119,11 @@ class KVCache:
 
 
 class PhiAttention(nn.Module):
-    def __init__(self, cfg: PhiConfig, dtype=torch.float32, device=None):
+    def __init__(self, cfg: PhiConfig, dtype=torch.float32, device=None,
+                 use_flash: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.use_flash = use_flash
         D = cfg.hidden_size
         self.q_proj = make_dense(cfg, D, D, dtype=dtype, device=device)
         self.k_proj = make_dense(cfg, D, D, dtype=dtype, device=device)
@@ -145,6 +156,12 @@ class PhiAttention(nn.Module):
                 ck.scatter_(2, idx, k.to(ck.dtype))
                 cv.scatter_(2, idx, v.to(cv.dtype))
                 k, v = ck[:, :, :cache.span], cv[:, :, :cache.span]
+        elif self.use_flash and L > 1:
+            out = flash_attention(q.to(self.dtype).contiguous(),
+                                  k.to(self.dtype).contiguous(),
+                                  v.to(self.dtype).contiguous(), causal=True,
+                                  sm_scale=1.0 / math.sqrt(hd))
+            return self.dense(out.transpose(1, 2).reshape(B, L, D))
         attn = torch.einsum("bhld,bhsd->bhls", q.float(), k.float())
         attn = attn / math.sqrt(hd) + attn_bias
         attn = torch.softmax(attn, dim=-1).to(self.dtype)
@@ -165,11 +182,13 @@ class PhiMLP(nn.Module):
 
 
 class PhiDecoderLayer(nn.Module):
-    def __init__(self, cfg: PhiConfig, dtype=torch.float32, device=None):
+    def __init__(self, cfg: PhiConfig, dtype=torch.float32, device=None,
+                 use_flash: bool = False):
         super().__init__()
         self.input_layernorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps,
                                          device=device)
-        self.self_attn = PhiAttention(cfg, dtype=dtype, device=device)
+        self.self_attn = PhiAttention(cfg, dtype=dtype, device=device,
+                                      use_flash=use_flash)
         self.mlp = PhiMLP(cfg, dtype=dtype, device=device)
 
     def forward(self, x, attn_bias, cos, sin, cache=None, layer=0, slots=None):
@@ -181,7 +200,8 @@ class PhiDecoderLayer(nn.Module):
 class PhiModel(nn.Module):
     """Embedding + decoder stack + final LayerNorm, on input embeddings."""
 
-    def __init__(self, cfg: PhiConfig, dtype=torch.float32, device=None):
+    def __init__(self, cfg: PhiConfig, dtype=torch.float32, device=None,
+                 use_flash: bool = False):
         super().__init__()
         if cfg.lora_rank:
             raise NotImplementedError("LoRA adapters are not ported")
@@ -192,7 +212,8 @@ class PhiModel(nn.Module):
                                              cfg.vocab_size, cfg.hidden_size,
                                              device=device))
         self.layers = nn.ModuleList(PhiDecoderLayer(cfg, dtype=dtype,
-                                                    device=device)
+                                                    device=device,
+                                                    use_flash=use_flash)
                                     for _ in range(cfg.num_layers))
         self.final_layernorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps,
                                          device=device)

@@ -9,7 +9,10 @@ mask features. LayerNorm and GroupNorm run in f32.
 The sampler is kernel K1 (``psalm_tpu_torch/ops/msdeform.py``):
 ``attention_mode="deformable"`` (the default) runs it exact;
 ``"window"`` and ``"window_pallas3"`` run it with ``radius=window_radius``,
-the JAX window modes' clamp. ``"dense"`` and per-point radii are not ported.
+the JAX window modes' clamp. ``"dense"`` replaces the sampler with
+``DenseSelfAttention``, full non-causal attention over all S encoder tokens
+through kernel K5 (``psalm_tpu_torch/ops/flash_attention.py``). Per-point
+radii are not ported.
 
 Parameter names are the released checkpoint's (``pixel_decoder.*``).
 """
@@ -28,6 +31,7 @@ from psalm_tpu_torch.config import PixelDecoderConfig
 from psalm_tpu_torch.models.layers import (Conv2d, Dense, GroupNorm, LayerNorm,
                                            position_embedding_sine)
 from psalm_tpu_torch.ops import msdeform
+from psalm_tpu_torch.ops.flash_attention import flash_attention
 from psalm_tpu_torch.ops.sampling import resize_bilinear
 
 _CLAMPED_MODES = ("window", "window_pallas3")
@@ -95,15 +99,48 @@ class MSDeformAttnLayer(nn.Module):
         return self.output_proj(out)
 
 
+class DenseSelfAttention(nn.Module):
+    """Full attention over the concatenated multi-scale tokens (keys
+    ``q_proj``, ``k_proj``, ``value_proj``, ``output_proj``): the query
+    comes from ``query`` (src + pos), keys and values from ``src``; scale
+    head_dim^-0.5."""
+
+    def __init__(self, dim: int, nheads: int, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.nheads = nheads
+        self.q_proj = Dense(dim, dim, dtype=dtype, device=device)
+        self.k_proj = Dense(dim, dim, dtype=dtype, device=device)
+        self.value_proj = Dense(dim, dim, dtype=dtype, device=device)
+        self.output_proj = Dense(dim, dim, dtype=dtype, device=device)
+
+    def forward(self, query, src):
+        B, S, C = src.shape
+        h = self.nheads
+        hd = C // h
+
+        def heads(x):  # [B, S, C] -> [B, h, S, hd]
+            return x.reshape(B, S, h, hd).transpose(1, 2).contiguous()
+
+        out = flash_attention(heads(self.q_proj(query)), heads(self.k_proj(src)),
+                              heads(self.value_proj(src)), causal=False,
+                              sm_scale=hd ** -0.5)
+        return self.output_proj(out.transpose(1, 2).reshape(B, S, C))
+
+
 class EncoderLayer(nn.Module):
     def __init__(self, cfg: PixelDecoderConfig, radius, dtype=torch.float32,
                  device=None):
         super().__init__()
         d = cfg.conv_dim
-        self.self_attn = MSDeformAttnLayer(d, cfg.num_feature_levels,
-                                           cfg.transformer_nheads,
-                                           cfg.enc_points, radius=radius,
-                                           dtype=dtype, device=device)
+        if cfg.attention_mode == "dense":
+            self.self_attn = DenseSelfAttention(d, cfg.transformer_nheads,
+                                                dtype=dtype, device=device)
+        else:
+            self.self_attn = MSDeformAttnLayer(d, cfg.num_feature_levels,
+                                               cfg.transformer_nheads,
+                                               cfg.enc_points, radius=radius,
+                                               dtype=dtype, device=device)
         self.norm1 = LayerNorm(d, device=device)
         self.linear1 = Dense(d, cfg.transformer_dim_feedforward, dtype=dtype,
                              device=device)
@@ -112,7 +149,10 @@ class EncoderLayer(nn.Module):
         self.norm2 = LayerNorm(d, device=device)
 
     def forward(self, src, pos, ref_points, shapes, ref_pixels=None):
-        src2 = self.self_attn(src + pos, src, ref_points, shapes, ref_pixels)
+        if isinstance(self.self_attn, DenseSelfAttention):
+            src2 = self.self_attn(src + pos, src)
+        else:
+            src2 = self.self_attn(src + pos, src, ref_points, shapes, ref_pixels)
         src = self.norm1(src + src2)
         ffn = self.linear2(F.relu(self.linear1(src)))
         return self.norm2(src + ffn)
@@ -148,11 +188,11 @@ class MSDeformAttnPixelDecoder(nn.Module):
                  device=None):
         super().__init__()
         mode = cfg.attention_mode
-        if mode == "dense" or cfg.window_point_radii:
+        if cfg.window_point_radii:
             raise NotImplementedError(
-                f"pixel decoder attention_mode={mode!r} / window_point_radii="
-                f"{cfg.window_point_radii} is not ported")
-        if mode not in ("deformable",) + _CLAMPED_MODES:
+                f"pixel decoder window_point_radii={cfg.window_point_radii} "
+                "is not ported")
+        if mode not in ("deformable", "dense") + _CLAMPED_MODES:
             raise ValueError(f"unknown attention_mode {mode!r}")
         self.cfg = cfg
         self.dtype = dtype

@@ -54,6 +54,8 @@ SIGNATURES = {
     # x, packed, scale, partial, out, dtype, B, K, N, group, rows_per_split,
     # splits, stream
     "psalm_int4_matvec": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # q, k, v, out, dtype, BH, L, hd, causal, scale, stream
+    "psalm_flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

@@ -1,4 +1,9 @@
-"""Bilinear resize on NHWC tensors, with the semantics of
+"""Bilinear point sampling and resize on NHWC tensors.
+
+``point_sample`` is the forward of ``psalm_tpu/ops/sampling.py::point_sample``
+(and of ``point_sample_mmgrad``, which differs only in its gradient):
+detectron2's ``point_sample`` around ``grid_sample`` with zero padding, on
+(x, y) points in [0, 1]. ``resize_bilinear`` has the semantics of
 ``jax.image.resize(..., method="bilinear", antialias=False)`` that
 ``psalm_tpu/ops/sampling.py::resize_bilinear`` uses.
 
@@ -15,6 +20,34 @@ import numpy as np
 import torch
 
 _EPS_F32 = float(np.finfo(np.float32).eps)
+
+
+def point_sample(feat: torch.Tensor, coords: torch.Tensor,
+                 align_corners: bool = False) -> torch.Tensor:
+    """feat [B, H, W, C]; coords [B, N, 2] (x, y) in [0, 1] -> [B, N, C].
+
+    Pixel coordinates are x * (W - 1) with ``align_corners``, else
+    x * W - 0.5; the four corners' weights are taken in feat's dtype, as JAX
+    takes them, and a corner off the map contributes zero."""
+    B, H, W, C = feat.shape
+    x, y = coords[..., 0], coords[..., 1]
+    if align_corners:
+        px, py = x * (W - 1), y * (H - 1)
+    else:
+        px, py = x * W - 0.5, y * H - 0.5
+    x0, y0 = torch.floor(px), torch.floor(py)
+    fx, fy = (px - x0).to(feat.dtype), (py - y0).to(feat.dtype)
+    x0i, y0i = x0.long(), y0.long()
+    flat = feat.reshape(B, H * W, C)
+    out = torch.zeros(B, coords.shape[1], C, dtype=feat.dtype, device=feat.device)
+    for dy, dx, wgt in ((0, 0, (1 - fy) * (1 - fx)), (0, 1, (1 - fy) * fx),
+                        (1, 0, fy * (1 - fx)), (1, 1, fy * fx)):
+        yi, xi = y0i + dy, x0i + dx
+        valid = (yi >= 0) & (yi < H) & (xi >= 0) & (xi < W)
+        idx = yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)
+        g = torch.gather(flat, 1, idx[..., None].expand(-1, -1, C))
+        out = out + g * (wgt * valid.to(feat.dtype))[..., None]
+    return out
 
 
 def resize_weights(in_size: int, out_size: int, device=None) -> torch.Tensor:

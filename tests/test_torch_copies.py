@@ -142,3 +142,17 @@ def test_image_mapper_equals_original(hw):
     np.testing.assert_array_equal(got.padding_mask, want.padding_mask)
     assert (got.resized_hw, got.original_hw, got.scale) == \
         (want.resized_hw, want.original_hw, want.scale)
+
+
+@pytest.mark.parametrize("area", [0, 5, 300, 4000])
+def test_sample_region_points_equals_original(area):
+    """In-mask points with repeat (fewer pixels than points), a sample
+    without repeat (more), and an empty mask, from the same generator."""
+    mask = np.zeros((64, 80), bool)
+    mask.reshape(-1)[np.random.default_rng(area).permutation(mask.size)[:area]] = True
+    want = jmappers.ImageMapper.sample_region_points(
+        mask, 256, np.random.default_rng(1))
+    got = tmappers.ImageMapper.sample_region_points(
+        mask, 256, np.random.default_rng(1))
+    assert got.dtype == want.dtype == np.float32 and got.shape == (256, 2)
+    np.testing.assert_array_equal(got, want)

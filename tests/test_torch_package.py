@@ -13,7 +13,8 @@ import pytest
 import torch
 
 import psalm_tpu_torch
-from psalm_tpu_torch.ops import _build, int4_matvec, msdeform, swin_attention
+from psalm_tpu_torch.ops import (_build, flash_attention, int4_matvec,
+                                 msdeform, swin_attention)
 
 
 def test_no_jax_behind_the_package():
@@ -103,7 +104,8 @@ def test_nvcc_command_targets_sm90a():
 
 def test_nvcc_compiles_each_source_on_its_own_for_sm90a():
     srcs = _build.sources()
-    assert "int4_matvec.cu" in {p.name for p in srcs}
+    assert {"int4_matvec.cu", "flash_attention.cu"} <= {p.name for p in srcs}
+    assert set(_build.SIGNATURES) >= {"psalm_flash_attention_fwd"}
     for src in srcs:
         obj = _build.BUILD_DIR / f"{src.stem}.o"
         cmd = _build.nvcc_command("nvcc", [src], obj, compile_only=True)
@@ -160,6 +162,47 @@ def test_int4_plan_covers_the_rows_in_whole_groups(B, K, N):
         assert splits * N // int4_matvec.COLUMNS_PER_BLOCK >= 256
 
 
+def _flash_args(device="cpu", dtype=torch.float32, B=1, h=2, L=37, hd=32):
+    g = torch.Generator().manual_seed(0)
+    return [torch.randn(B, h, L, hd, generator=g).to(device, dtype)
+            for _ in range(3)]
+
+
+def test_flash_cpu_takes_the_plain_version_and_counts_no_launch():
+    n = (flash_attention.LAUNCHES, flash_attention.CAUSAL_LAUNCHES)
+    for causal in (True, False):
+        q, k, v = _flash_args()
+        assert torch.equal(
+            flash_attention.flash_attention(q, k, v, causal=causal, sm_scale=0.3),
+            flash_attention.flash_attention_ref(q, k, v, causal=causal,
+                                                sm_scale=0.3))
+    assert (flash_attention.LAUNCHES, flash_attention.CAUSAL_LAUNCHES) == n
+
+
+def test_flash_other_devices_reach_the_kernel_loader(monkeypatch):
+    def loader():
+        raise RuntimeError("kernel loader reached")
+
+    monkeypatch.setattr(_build, "library", loader)
+    with pytest.raises(RuntimeError, match="kernel loader reached"):
+        flash_attention.flash_attention(*_flash_args("meta"), causal=True,
+                                        sm_scale=1.0)
+
+
+@pytest.mark.parametrize("bad,match", [
+    ({}, "meta"), (dict(hd=16), "head dim 16"), (dict(dtype=torch.float16),
+                                                 "float16")])
+def test_flash_wrapper_checks_inputs_before_launch(monkeypatch, bad, match):
+    """The wrapper refuses what the kernel lacks (a head dim, a dtype, a
+    non-CUDA tensor) before any launch: no quiet plain-version route."""
+    monkeypatch.setattr(_build, "library", lambda: None)
+    n = flash_attention.LAUNCHES
+    with pytest.raises((ValueError, TypeError), match=match):
+        flash_attention.flash_attention(*_flash_args("meta", **bad),
+                                        causal=True, sm_scale=1.0)
+    assert flash_attention.LAUNCHES == n
+
+
 def _require_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU or interpret "
@@ -204,3 +247,22 @@ def test_kernels_match_plain_versions_on_the_card(dtype, atol):
         got = swin_attention.window_attention(qkv, bias, m, h, scale).float()
         want = swin_attention.window_attention_ref(qkv, bias, m, h, scale).float()
         assert (got - want).abs().max().item() <= atol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2e-2)])
+def test_flash_kernel_matches_plain_version_on_the_card(dtype, atol):
+    """K5 against flash_attention_ref, causal and not, at each head dim, at
+    lengths that are no multiple of the kernel's tiles."""
+    _require_card()
+    n = flash_attention.LAUNCHES
+    for hd in flash_attention.HEAD_DIMS:
+        for L, causal in ((37, True), (200, False), (577, True)):
+            q, k, v = _flash_args("cuda", dtype, B=2, h=3, L=L, hd=hd)
+            got = flash_attention.flash_attention(q, k, v, causal=causal,
+                                                  sm_scale=hd ** -0.5).float()
+            want = flash_attention.flash_attention_ref(
+                q, k, v, causal=causal, sm_scale=hd ** -0.5).float()
+            assert (got - want).abs().max().item() <= atol, (hd, L, causal)
+    assert flash_attention.LAUNCHES == n + 3 * len(flash_attention.HEAD_DIMS)
