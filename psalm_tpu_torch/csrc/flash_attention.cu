@@ -23,14 +23,9 @@
 // diagonal, skipping every tile above it. A query row is owned by HD/32
 // neighbouring threads of one warp, each holding 32 channels of q and of the
 // accumulator in registers; a logit's partial dot products are summed across
-// them with warp shuffles. Every product reads its key or value element from
-// shared memory, so the loop is bound by shared-memory loads as much as by
-// the multiply-adds: the threads read them four at a time (16-byte loads,
-// a quarter of the load instructions of 4-byte ones) and keep four partial
-// sums per dot product. Each 32-channel slice of a staged row sits at a
-// stride of 36 floats, 16-byte aligned, so the HD/32 slices that one warp
-// reads at once lie in different banks. Tensor cores (mma/wgmma) and TMA
-// are later work.
+// them with warp shuffles. Each 32-channel slice of a staged row sits at a
+// stride of 33 floats, so the HD/32 slices that one warp reads at once lie
+// in different banks. Tensor cores (mma/wgmma) and TMA are later work.
 
 #include "common.cuh"
 
@@ -40,7 +35,7 @@ constexpr int kRows = 64;       // query rows per block
 constexpr int kCols = 64;       // keys per staged tile
 constexpr int kChunk = 16;      // logits per online-softmax step
 constexpr int kSlice = 32;      // channels per thread
-constexpr int kSliceStride = 36;  // floats between slices in shared memory
+constexpr int kSliceStride = 33;  // floats between slices in shared memory
 
 template <typename T, int HD>
 __global__ void flash_attention_kernel(const T* __restrict__ q,
@@ -50,8 +45,7 @@ __global__ void flash_attention_kernel(const T* __restrict__ q,
                                        float scale_log2, int causal) {
   constexpr int kParts = HD / kSlice;  // threads per query row
   constexpr int kRowStride = kParts * kSliceStride;
-  extern __shared__ float4 smem4[];  // float4: 16-byte aligned
-  float* smem = reinterpret_cast<float*>(smem4);
+  extern __shared__ float smem[];
   float* ks = smem;                     // [kCols, kRowStride]
   float* vs = smem + kCols * kRowStride;  // [kCols, kRowStride]
 
@@ -96,18 +90,9 @@ __global__ void flash_attention_kernel(const T* __restrict__ q,
         const int jj = c0 + c;
         float dot = 0.f;
         if (jj < n) {  // uniform across the block
-          const float4* kr = reinterpret_cast<const float4*>(
-              ks + jj * kRowStride + part * kSliceStride);
-          float d0 = 0.f, d1 = 0.f, d2 = 0.f, d3 = 0.f;
+          const float* kr = ks + jj * kRowStride + part * kSliceStride;
 #pragma unroll
-          for (int d = 0; d < kSlice / 4; ++d) {
-            const float4 kv = kr[d];
-            d0 += qr[4 * d] * kv.x;
-            d1 += qr[4 * d + 1] * kv.y;
-            d2 += qr[4 * d + 2] * kv.z;
-            d3 += qr[4 * d + 3] * kv.w;
-          }
-          dot = (d0 + d1) + (d2 + d3);
+          for (int d = 0; d < kSlice; ++d) dot += qr[d] * kr[d];
         }
 #pragma unroll
         for (int off = 1; off < kParts; off <<= 1)
@@ -129,16 +114,9 @@ __global__ void flash_attention_kernel(const T* __restrict__ q,
         const float p = exp2f(s[c] - base);  // 0 where masked
         denom += p;
         if (c0 + c < n) {
-          const float4* vr = reinterpret_cast<const float4*>(
-              vs + (c0 + c) * kRowStride + part * kSliceStride);
+          const float* vr = vs + (c0 + c) * kRowStride + part * kSliceStride;
 #pragma unroll
-          for (int d = 0; d < kSlice / 4; ++d) {
-            const float4 vv = vr[d];
-            acc[4 * d] += p * vv.x;
-            acc[4 * d + 1] += p * vv.y;
-            acc[4 * d + 2] += p * vv.z;
-            acc[4 * d + 3] += p * vv.w;
-          }
+          for (int d = 0; d < kSlice; ++d) acc[d] += p * vr[d];
         }
       }
       mx = mnew;

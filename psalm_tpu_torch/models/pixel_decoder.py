@@ -103,7 +103,8 @@ class DenseSelfAttention(nn.Module):
     """Full attention over the concatenated multi-scale tokens (keys
     ``q_proj``, ``k_proj``, ``value_proj``, ``output_proj``): the query
     comes from ``query`` (src + pos), keys and values from ``src``; scale
-    head_dim^-0.5."""
+    head_dim^-0.5. Takes ``MSDeformAttnLayer``'s arguments and needs no
+    reference points."""
 
     def __init__(self, dim: int, nheads: int, dtype=torch.float32,
                  device=None):
@@ -114,7 +115,8 @@ class DenseSelfAttention(nn.Module):
         self.value_proj = Dense(dim, dim, dtype=dtype, device=device)
         self.output_proj = Dense(dim, dim, dtype=dtype, device=device)
 
-    def forward(self, query, src):
+    def forward(self, query, src, ref_points=None, shapes=None,
+                ref_pixels=None):
         B, S, C = src.shape
         h = self.nheads
         hd = C // h
@@ -149,10 +151,7 @@ class EncoderLayer(nn.Module):
         self.norm2 = LayerNorm(d, device=device)
 
     def forward(self, src, pos, ref_points, shapes, ref_pixels=None):
-        if isinstance(self.self_attn, DenseSelfAttention):
-            src2 = self.self_attn(src + pos, src)
-        else:
-            src2 = self.self_attn(src + pos, src, ref_points, shapes, ref_pixels)
+        src2 = self.self_attn(src + pos, src, ref_points, shapes, ref_pixels)
         src = self.norm1(src + src2)
         ffn = self.linear2(F.relu(self.linear1(src)))
         return self.norm2(src + ffn)

@@ -250,11 +250,13 @@ def test_kernels_match_plain_versions_on_the_card(dtype, atol):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
-                                        (torch.bfloat16, 2e-2)])
-def test_flash_kernel_matches_plain_version_on_the_card(dtype, atol):
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2.0 ** -7)])
+def test_flash_kernel_matches_plain_version_on_the_card(dtype, rtol):
     """K5 against flash_attention_ref, causal and not, at each head dim, at
-    lengths that are no multiple of the kernel's tiles."""
+    lengths that are no multiple of the kernel's tiles. Per element within
+    rtol |want| + 1e-5: both compute in f32 and round to the input's type,
+    so in bf16 they differ by at most one bf16 step (2^-7 of the size)."""
     _require_card()
     n = flash_attention.LAUNCHES
     for hd in flash_attention.HEAD_DIMS:
@@ -264,5 +266,6 @@ def test_flash_kernel_matches_plain_version_on_the_card(dtype, atol):
                                                   sm_scale=hd ** -0.5).float()
             want = flash_attention.flash_attention_ref(
                 q, k, v, causal=causal, sm_scale=hd ** -0.5).float()
-            assert (got - want).abs().max().item() <= atol, (hd, L, causal)
+            limit = rtol * want.abs() + 1e-5
+            assert ((got - want).abs() <= limit).all(), (hd, L, causal)
     assert flash_attention.LAUNCHES == n + 3 * len(flash_attention.HEAD_DIMS)
