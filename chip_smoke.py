@@ -26,7 +26,18 @@ Phases, each of which must pass:
                     64, L=640) and at L=577, bf16 and f32; non-causal over
                     the S=21504 encoder tokens with 8 heads of 32 and 2 of
                     128, bf16; every element within 2^-7 of its size
-                    (one bf16 step) + 1e-5 in bf16, 1e-5 of it + 1e-5 in f32.
+                    (one bf16 step) + 1e-5 in bf16, 1e-5 of it + 1e-5 in f32;
+                 K2 sampler backward: K1's shapes, bf16 and f32, exact and
+                    radius=8, offsets off whole pixels; against autograd
+                    through the plain sampler; every element of d value,
+                    d loc and d attn within rtol of its size + 1e-5 of the
+                    largest (rtol 2^-7 for bf16 d value and d attn, which
+                    are rounded once to bf16; 1e-5 else: atomics' order);
+                 K5 backward: causal at L=640 (32 x 64), non-causal at
+                    S=21504 with 2 x 128 (the dense training shape) and 8 x
+                    32, bf16; against the plain chunked backward on the
+                    same out and log-sum-exp, with the same per-element
+                    limit; library: scaled_dot_product_attention's backward.
   4. small   - the whole eval slice at the tiny config in f32: kernels on the
                card against the plain versions on the CPU, same weights; the
                panoptic task, then with Phi's use_flash (heads of 32) the
@@ -62,13 +73,33 @@ Phases, each of which must pass:
                per image.
   8. dense   - the panoptic task with attention_mode="dense" and use_flash:
                6 non-causal and 24 causal K5 launches per image, no K1.
+  9. train (small) - Trainer.step at the tiny config in f32, 2 steps on the
+               card against the same steps on the CPU (same weights, the
+               same point draws): the deformable pixel decoder (K1, K2),
+               and the dense one with Phi's use_flash (K5 and its backward,
+               causal and not); losses and grad norm within 1e-3 relative.
+ 10. train   - Trainer.step at the full published width in the default
+               deformable mode: bf16 compute, f32 parameters, AdamW,
+               gradient checkpointing, batch 1, a panoptic sample of the
+               synthetic dataset (81 class names of 3 tokens, sequence
+               640, 16 ground-truth masks at 1024^2, 12544 points); 1
+               warm-up and 3 timed steps. Per step: 12 K1 (6 and their 6
+               recomputations), 6 K2 and 24 K3 launches. The first update
+               (lr 0) leaves the parameters as they were, the second moves
+               them, and the frozen tower never moves.
+ 11. train dense - the same with attention_mode="dense" (2 heads of 128):
+               12 non-causal K5 forwards and 6 backwards per step, no K1 or
+               K2.
 
-f32 comparisons run with TF32 off. On the line before the last: a JSON object
+Each path zeroes the launch counters just before its timed run and reads
+them just after. f32 comparisons run with TF32 off. On the line before the
+last: a JSON object
 with each kernel's checks, launches, times and bound. The last line is
 {"ok": true, "device": ...}. Any failure exits nonzero before that line. The
 script imports nothing of JAX and nothing of psalm_tpu (it checks both).
 """
 
+import gc
 import json
 import os
 import subprocess
@@ -115,6 +146,18 @@ SOURCES = {
                   "psalm_tpu/models/phi.py:122"),
     "K5 non-causal": ("psalm_tpu_torch/csrc/flash_attention.cu",
                       "psalm_tpu/models/pixel_decoder.py:166"),
+    # the gradient of the window sampler (no Pallas kernel: JAX's manual
+    # VJP, which msdeform_window_pallas2.py:256 takes as its op's backward)
+    "K2": ("psalm_tpu_torch/csrc/msdeform_bwd.cu",
+           "psalm_tpu/ops/msdeform_window.py:219"),
+    # the stock kernel's backward: _flash_attention_bwd_dkv (:941) and
+    # _flash_attention_bwd_dq (:1287), two pl.pallas_calls
+    "K5 backward causal": (
+        "psalm_tpu_torch/csrc/flash_attention_bwd.cu",
+        "jax/experimental/pallas/ops/tpu/flash_attention.py:941"),
+    "K5 backward non-causal": (
+        "psalm_tpu_torch/csrc/flash_attention_bwd.cu",
+        "jax/experimental/pallas/ops/tpu/flash_attention.py:1287"),
 }
 
 
@@ -122,18 +165,30 @@ def launch_counts():
     """Every kernel's launches since the counters were last zeroed."""
     from psalm_tpu_torch.ops import (flash_attention, int4_matvec, msdeform,
                                      swin_attention)
-    return {"K1": msdeform.LAUNCHES, "K3": swin_attention.LAUNCHES,
-            "K4": int4_matvec.LAUNCHES,
-            "K5 causal": flash_attention.CAUSAL_LAUNCHES,
-            "K5 non-causal": (flash_attention.LAUNCHES
-                              - flash_attention.CAUSAL_LAUNCHES)}
+    fa = flash_attention
+    return {"K1": msdeform.LAUNCHES, "K2": msdeform.BWD_LAUNCHES,
+            "K3": swin_attention.LAUNCHES, "K4": int4_matvec.LAUNCHES,
+            "K5 causal": fa.CAUSAL_LAUNCHES,
+            "K5 non-causal": fa.LAUNCHES - fa.CAUSAL_LAUNCHES,
+            "K5 backward causal": fa.BWD_CAUSAL_LAUNCHES,
+            "K5 backward non-causal": fa.BWD_LAUNCHES - fa.BWD_CAUSAL_LAUNCHES}
+
+
+def expected(**per_kernel):
+    """A launch count for every kernel: the given ones, 0 for the rest."""
+    names = {k.replace(" ", "_").replace("-", "_"): k for k in SOURCES}
+    counts = dict.fromkeys(SOURCES, 0)
+    counts.update({names[k]: v for k, v in per_kernel.items()})
+    return counts
 
 
 def zero_counts():
     from psalm_tpu_torch.ops import (flash_attention, int4_matvec, msdeform,
                                      swin_attention)
-    msdeform.LAUNCHES = swin_attention.LAUNCHES = int4_matvec.LAUNCHES = 0
+    msdeform.LAUNCHES = msdeform.BWD_LAUNCHES = 0
+    swin_attention.LAUNCHES = int4_matvec.LAUNCHES = 0
     flash_attention.LAUNCHES = flash_attention.CAUSAL_LAUNCHES = 0
+    flash_attention.BWD_LAUNCHES = flash_attention.BWD_CAUSAL_LAUNCHES = 0
 
 
 def log(msg):
@@ -456,6 +511,123 @@ def check_k5(torch, flash_attention, records):
         records[-1]["rtol"], records[-1]["atol"] = rtol, atol
 
 
+def elementwise_worst(got, want, rtol, atol_rel):
+    """The largest |got - want| / (rtol |want| + atol_rel max |want|)."""
+    got, want = got.float(), want.float()
+    limit = rtol * want.abs() + atol_rel * want.abs().max()
+    return ((got - want).abs() / limit.clamp(min=1e-30)).max().item()
+
+
+def check_k2(torch, msdeform, records):
+    """K2 against autograd through the plain sampler, K1's inputs with the
+    offsets moved 0.05 px off whole pixels (where AD of floor takes a side)
+    and off +-8 (the clip)."""
+    shapes = ((32, 32), (64, 64), (128, 128))
+    B, M, D, L, P = 1, 8, 32, 3, 4
+    S = sum(h * w for h, w in shapes)
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(2)
+    from psalm_tpu_torch.models.pixel_decoder import reference_points
+    ref = torch.from_numpy(reference_points(shapes)).to(dev)
+    norm = torch.tensor([[w, h] for h, w in shapes], dtype=torch.float32,
+                        device=dev)
+    off = (torch.rand(B, S, M, L, P, 2, generator=g, device=dev) * 2 - 1) * 12
+    frac = torch.remainder(off, 1.0)
+    off = torch.where(frac < 0.05, off + 0.05,
+                      torch.where(frac > 0.95, off - 0.05, off))
+    off = torch.where((off.abs() - 8).abs() < 0.05, off * 0.98, off)
+    loc = (ref[None, :, None, :, None, :]
+           + off / norm[None, None, None, :, None, :]).contiguous()
+    value32 = torch.randn(B, S, M, D, generator=g, device=dev)
+    attn32 = torch.softmax(torch.randn(B, S, M, L * P, generator=g, device=dev),
+                           -1).reshape(B, S, M, L, P)
+    grad32 = torch.randn(B, S, M * D, generator=g, device=dev)
+    starts = msdeform.level_starts(shapes)
+    for dtype in (torch.bfloat16, torch.float32):
+        value, attn, grad = (t.to(dtype).contiguous()
+                             for t in (value32, attn32, grad32))
+        elt = value.element_size()
+        # read value, loc, attn and the output gradient, write d value, d
+        # loc and d attn; about 30 operations per channel and sample (four
+        # tap weights, three sums over the taps, four scatter products)
+        nbytes = 2 * (value.numel() * elt + loc.numel() * 4
+                      + attn.numel() * elt) + grad.numel() * elt
+        flops = B * S * M * L * P * D * 30
+        for radius in (None, 8.0):
+            args = (value, shapes, starts, loc, attn, grad)
+            got = msdeform.ms_deform_attn_bwd(*args, radius=radius)
+            want = msdeform.ms_deform_attn_bwd_ref(*args, radius=radius)
+            torch.cuda.synchronize()
+            name = f"K2 ms_deform_attn_bwd {dtype_name(dtype)} radius={radius}"
+            worst = {}
+            for what, a, b in zip(("d_value", "d_loc", "d_attn"), got, want):
+                rtol = (2.0 ** -7 if dtype == torch.bfloat16
+                        and what != "d_loc" else 1e-5)
+                worst[what] = elementwise_worst(a, b, rtol, 1e-5)
+            log(f"  {name}: worst element at {worst} of its limit")
+            if not max(worst.values()) <= 1.0:
+                fail(f"{name}: an element exceeds its limit: {worst}")
+            dv, dv_want = got[0].float(), want[0].float()
+            rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+            record(records, "K2", name, (dv - dv_want).abs().max().item(),
+                   (rtol + 1e-5) * dv_want.abs().max().item(),
+                   lambda: msdeform.ms_deform_attn_bwd(*args, radius=radius),
+                   lambda: msdeform.ms_deform_attn_bwd_ref(*args,
+                                                           radius=radius),
+                   None, bound(nbytes, flops, dtype_name(dtype)))
+            records[-1]["worst_of_limit"] = worst
+
+
+def check_k5_bwd(torch, flash_attention, records):
+    """The K5 backward against the plain chunked backward, both from the
+    kernel forward's out and log-sum-exp."""
+    import torch.nn.functional as F
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(6)
+    cases = [(32, 640, 64, True),      # Phi with use_flash, eval batch
+             (2, 21504, 128, False),   # the dense training shape
+             (8, 21504, 32, False)]
+    for h, L, hd, causal in cases:
+        dtype = torch.bfloat16
+        q, k, v, do = (torch.randn(1, h, L, hd, generator=g, device=dev)
+                       .to(dtype) for _ in range(4))
+        scale = hd ** -0.5
+        out, lse = flash_attention._forward(q, k, v, causal, scale,
+                                            with_lse=True)
+        args = (q, k, v, out, lse, do)
+        kw = dict(causal=causal, sm_scale=scale)
+        got = flash_attention.flash_attention_bwd(*args, **kw)
+        want = flash_attention.flash_attention_bwd_ref(*args, **kw)
+        torch.cuda.synchronize()
+        kernel = "K5 backward " + ("causal" if causal else "non-causal")
+        name = f"{kernel} flash_attention_bwd bf16 B=1 h={h} L={L} hd={hd}"
+        worst = {w: elementwise_worst(a, b, 2.0 ** -7, 1e-5)
+                 for w, a, b in zip(("dq", "dk", "dv"), got, want)}
+        log(f"  {name}: worst element at {worst} of its limit 2^-7 |want| "
+            f"+ 1e-5 max |want|")
+        if not max(worst.values()) <= 1.0:
+            fail(f"{name}: an element exceeds its limit: {worst}")
+        qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        ref_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
+                                                 scale=scale)
+
+        def library():
+            torch.autograd.grad(ref_out, (qs, ks, vs), do, retain_graph=True)
+
+        # read q, k, v, out, dout and lse, write dq, dk and dv; five [L, L]
+        # products (half of them under the causal mask)
+        nbytes = 8 * q.numel() * q.element_size() + lse.numel() * 4
+        flops = 10 * h * L * L * hd // (2 if causal else 1)
+        dq, dq_want = got[0].float(), want[0].float()
+        record(records, kernel, name, (dq - dq_want).abs().max().item(),
+               (2.0 ** -7 + 1e-5) * dq_want.abs().max().item(),
+               lambda: flash_attention.flash_attention_bwd(*args, **kw),
+               lambda: flash_attention.flash_attention_bwd_ref(*args, **kw),
+               library, bound(nbytes, flops, "bfloat16"))
+        records[-1]["worst_of_limit"] = worst
+        del ref_out, qs, ks, vs
+
+
 def check_small_slice(torch, np):
     """Tiny config, f32: kernels on the card vs plain versions on the CPU."""
     from psalm_tpu_torch import tiny_test_config
@@ -638,9 +810,8 @@ def eval_slice(torch, np, card):
         fail("non-finite pred_masks or class logits")
     times, wall, launches, res = timed_images(torch, runner, batch, 2,
                                               TIMED_IMAGES)
-    expect = {"K1": cfg.pixel_decoder.transformer_enc_layers * TIMED_IMAGES,
-              "K3": sum(cfg.swin.depths) * TIMED_IMAGES, "K4": 0,
-              "K5 causal": 0, "K5 non-causal": 0}
+    expect = expected(K1=cfg.pixel_decoder.transformer_enc_layers
+                      * TIMED_IMAGES, K3=sum(cfg.swin.depths) * TIMED_IMAGES)
     log(f"launches in the timed run: {launches} (expected {expect})")
     if launches != expect:
         fail(f"kernel launches {launches} != {expect}")
@@ -726,9 +897,9 @@ def task_slice(torch, np, card):
         SegTask.REGION: synthetic_region_batch(
             cfg, 1, CONTENT_HW, ORIGINAL_HW, regions=REGIONS,
             valid_regions=REGIONS - 1, points=REGION_POINTS)}
-    per_image = {"K1": cfg.pixel_decoder.transformer_enc_layers,
-                 "K3": sum(cfg.swin.depths), "K4": 0,
-                 "K5 causal": cfg.phi.num_layers, "K5 non-causal": 0}
+    per_image = expected(K1=cfg.pixel_decoder.transformer_enc_layers,
+                         K3=sum(cfg.swin.depths),
+                         K5_causal=cfg.phi.num_layers)
     launches = {}
     for task, batch in batches.items():
         runner = EvalRunner(model, cfg.replace(seg_task=task),
@@ -768,10 +939,10 @@ def dense_slice(torch, np, card):
                         bucket_hw=BUCKET_HW)
     times, wall, counts, res = timed_images(torch, runner, batch, TASK_WARMUP,
                                             TASK_IMAGES)
-    expect = {"K1": 0, "K3": sum(cfg.swin.depths) * TASK_IMAGES, "K4": 0,
-              "K5 causal": cfg.phi.num_layers * TASK_IMAGES,
-              "K5 non-causal": cfg.pixel_decoder.transformer_enc_layers
-              * TASK_IMAGES}
+    expect = expected(K3=sum(cfg.swin.depths) * TASK_IMAGES,
+                      K5_causal=cfg.phi.num_layers * TASK_IMAGES,
+                      K5_non_causal=cfg.pixel_decoder.transformer_enc_layers
+                      * TASK_IMAGES)
     if counts != expect:
         fail(f"dense: kernel launches {counts} != {expect}")
     pan = res["panoptic_seg"][0]
@@ -787,6 +958,184 @@ def dense_slice(torch, np, card):
         f" over S={S}) on {card}; {int(res['segments']['valid'].sum())} "
         f"segments, {what}; launches {counts}")
     return {"dense": counts}
+
+
+def train_args(**kw):
+    """The trainer's arguments (psalm_tpu_torch.train.train.parse_args's
+    names): lr 6e-5 cosine after 3% warmup over 1000 steps, batch 1, bf16
+    compute, gradient checkpointing."""
+    import argparse
+    base = dict(output_dir=os.path.join(HERE, "build", "train"),
+                learning_rate=6e-5, warmup_ratio=0.03, weight_decay=0.0,
+                num_train_steps=1000, per_device_train_batch_size=1,
+                save_steps=10 ** 9, save_total_limit=1, logging_steps=1,
+                gradient_checkpointing=True, bf16=True, seed=0,
+                seg_task="panoptic", pixel_decoder_mode="deformable")
+    base.update(kw)
+    return argparse.Namespace(**base)
+
+
+def fixed_draws(np, cfg, B):
+    """One U[0, 1) array per point-draw shape of the criterion, the same on
+    every device and step (numpy, seed 11)."""
+    c = cfg.loss
+    P = c.train_num_points
+    rng = np.random.default_rng(11)
+    return {s: rng.uniform(size=s).astype(np.float32)
+            for s in ((B, P, 2), (B, int(P * c.oversample_ratio), 2),
+                      (B, P - int(c.importance_sample_ratio * P), 2))}
+
+
+def train_small(torch, np):
+    """Phase 9; returns each mode's launches on the card."""
+    import dataclasses
+    from psalm_tpu_torch import tiny_test_config
+    from psalm_tpu_torch.data.datasets import SyntheticPanopticDataset, collate
+    from psalm_tpu_torch.models.psalm import PSALM, init_weights_
+    from psalm_tpu_torch.train.train import Trainer
+    base = tiny_test_config()
+    base = base.replace(phi=dataclasses.replace(base.phi, num_heads=2))
+    K, steps, launches = 4, 2, {}
+    for mode in ("deformable", "dense"):
+        cfg = base.replace(pixel_decoder=dataclasses.replace(
+            base.pixel_decoder, attention_mode=mode,
+            transformer_nheads=1 if mode == "dense" else 4))
+        flash = mode == "dense"  # Phi's use_flash too: K5 causal both ways
+        ds = SyntheticPanopticDataset(cfg.image_size,
+                                      cfg.mask_decoder.num_queries, K,
+                                      num_samples=2, num_masks=3,
+                                      valid_masks=2, seed=3)
+        batch = collate([ds[0], ds[1]])
+        draws = fixed_draws(np, cfg, 2)
+        cpu = init_weights_(PSALM(cfg, device="cpu", use_flash=flash,
+                                  remat=True), torch.Generator().manual_seed(9))
+        with torch.no_grad():  # sampling offsets beyond the init's +-4 px
+            for layer in cpu.pixel_decoder.transformer.encoder.layers:
+                if mode == "deformable":
+                    layer.self_attn.sampling_offsets.bias.mul_(3.0)
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            model = PSALM(cfg, device=dev, use_flash=flash, remat=True)
+            model.load_state_dict(cpu.state_dict())
+            trainer = Trainer(train_args(bf16=False, warmup_ratio=0.1,
+                                         num_train_steps=10), cfg,
+                              model=model, device=dev,
+                              uniform_fn=lambda _, shape: draws[tuple(shape)])
+            zero_counts()
+            runs[dev] = ([{k: float(v) for k, v in trainer.step(batch).items()}
+                          for _ in range(steps)], launch_counts())
+        (want, _), (got, counts) = runs["cpu"], runs["cuda"]
+        for i, (w, g) in enumerate(zip(want, got)):
+            for key in ("loss_mask", "loss_dice", "loss_class_name_class",
+                        "loss", "grad_norm"):
+                if not abs(g[key] - w[key]) <= 1e-3 * abs(w[key]):
+                    fail(f"small training {mode} step {i} {key}: card "
+                         f"{g[key]} vs CPU {w[key]}")
+        enc, phi = (cfg.pixel_decoder.transformer_enc_layers,
+                    cfg.phi.num_layers)
+        per_step = (dict(K5_non_causal=2 * enc, K5_backward_non_causal=enc,
+                         K5_causal=2 * phi, K5_backward_causal=phi)
+                    if flash else dict(K1=2 * enc, K2=enc))
+        expect = expected(K3=sum(cfg.swin.depths) * steps,
+                          **{k: v * steps for k, v in per_step.items()})
+        if counts != expect:
+            fail(f"small training {mode}: launches {counts} != {expect}")
+        log(f"  {mode}{' + use_flash' if flash else ''}: {steps} steps, "
+            f"losses and grad norm within 1e-3 of the CPU (loss "
+            f"{got[-1]['loss']:.6f} vs {want[-1]['loss']:.6f}, grad norm "
+            f"{got[-1]['grad_norm']:.6f} vs {want[-1]['grad_norm']:.6f}); "
+            f"launches {counts}")
+        launches[f"train small/{mode}"] = counts
+    return launches
+
+
+def train_slice(torch, np, card, mode):
+    """Phases 10 and 11: the Trainer at the full published width; returns
+    the launches of the timed steps."""
+    import dataclasses
+    from psalm_tpu_torch.data.datasets import (SyntheticPanopticDataset,
+                                               UnifiedTaskSampler, collate)
+    from psalm_tpu_torch.train.train import Trainer, build_train_config
+    args = train_args(pixel_decoder_mode=mode)
+    cfg = build_train_config(args)  # dense: 2 heads of 128
+    K, timed = cfg.num_classes + 1, 3
+    t0 = time.perf_counter()
+    gc.collect()  # the last phase's model and trainer (reference cycles)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    trainer = Trainer(args, cfg, device="cuda")
+    ds = SyntheticPanopticDataset(cfg.image_size, cfg.mask_decoder.num_queries,
+                                  K, num_samples=4, num_masks=16)
+    sampler = UnifiedTaskSampler([ds], batch_size=1)
+    batches = [collate(sampler.next_batch()) for _ in range(1 + timed)]
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    n_train = sum(p.numel() for _, p in trainer.trainable)
+    torch.cuda.synchronize()
+    log(f"model: {n_params / 1e9:.3f} B parameters (f32), {n_train / 1e9:.3f} "
+        f"B trained, sequence {batches[0]['tok_ids'].shape[1]}, "
+        f"{ds.num_masks} masks at {cfg.image_size}^2, "
+        f"{cfg.loss.train_num_points} points; set up in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def watched():  # a few parameters: projector, Phi, pixel decoder, tower
+        named = dict(trainer.model.named_parameters())
+        keys = ["seg_query_projector.weight",
+                "model.layers.0.self_attn.q_proj.weight",
+                next(n for n in named if n.startswith(
+                    "pixel_decoder.transformer.encoder.layers.0.self_attn.")),
+                "model.vision_tower.patch_embed.proj.weight"]
+        return {k: named[k].detach().clone() for k in keys}
+
+    start = watched()
+    t0 = time.perf_counter()
+    metrics = trainer.step(batches[0])  # warm-up: lr 0
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    after_first = watched()
+    if any(not torch.equal(after_first[k], start[k]) for k in start):
+        fail(f"train {mode}: the first update (lr 0) changed a parameter")
+    zero_counts()
+    times = []
+    for i, batch in enumerate(batches[1:]):
+        t0 = time.perf_counter()
+        metrics = trainer.step(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if i == 0:
+            after_second = watched()
+    counts = launch_counts()
+    values = {k: float(v) for k, v in metrics.items()}
+    if not all(np.isfinite(v) for v in values.values()):
+        fail(f"train {mode}: non-finite metrics {values}")
+    tower = "model.vision_tower.patch_embed.proj.weight"
+    moved = [k for k in start if k != tower
+             and not torch.equal(after_second[k], start[k])]
+    if len(moved) != len(start) - 1 or not torch.equal(
+            trainer.model.get_parameter(tower), start[tower]):
+        fail(f"train {mode}: after the second update moved {moved}; the "
+             "tower must not move")
+    enc = cfg.pixel_decoder.transformer_enc_layers
+    per_step = (dict(K5_non_causal=2 * enc, K5_backward_non_causal=enc)
+                if mode == "dense" else dict(K1=2 * enc, K2=enc))
+    expect = expected(K3=sum(cfg.swin.depths) * timed,
+                      **{k: v * timed for k, v in per_step.items()})
+    log(f"launches in the {timed} timed steps: {counts} (expected {expect})")
+    if counts != expect:
+        fail(f"train {mode}: kernel launches {counts} != {expect}")
+    pd = cfg.pixel_decoder
+    log(f"train {mode}: step ms {[round(t * 1e3, 2) for t in times]} "
+        f"(median {sorted(times)[len(times) // 2] * 1e3:.2f}; warm-up "
+        f"{warm_s * 1e3:.0f} ms), batch 1, bf16 compute, f32 parameters, "
+        f"{pd.transformer_nheads} heads of "
+        f"{pd.conv_dim // pd.transformer_nheads}, on {card}; last step "
+        + ", ".join(f"{k} {v:.5f}" for k, v in values.items())
+        + f"; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+        f" ({held / 2**30:.2f} GiB held before the phase);"
+        f" launches per step "
+        + ", ".join(f"{k} {v // timed}" for k, v in counts.items() if v))
+    del trainer
+    return {f"train/{mode}": counts}
 
 
 class StubTokenizer:
@@ -925,9 +1274,8 @@ def serving_slice(torch, np, card):
                            chunk_size=DECODE_CHUNK)
     mm_s = time.perf_counter() - t0
     launches = launch_counts()
-    expect = {"K1": 0, "K3": sum(cfg.swin.depths) * gen.prefills,
-              "K4": 6 * cfg.phi.num_layers * gen.decode_steps,
-              "K5 causal": 0, "K5 non-causal": 0}
+    expect = expected(K3=sum(cfg.swin.depths) * gen.prefills,
+                      K4=6 * cfg.phi.num_layers * gen.decode_steps)
     log(f"chat: {CHAT_THREADS} requests of {NEW_TOKENS} tokens in "
         f"{chat_s:.2f} s ({chat_prefills} prefills, {chat_steps} decode steps,"
         f" {CHAT_THREADS * NEW_TOKENS / chat_s:.1f} tok/s); multimodal "
@@ -1019,6 +1367,8 @@ def main():
     check_k3(torch, swin_attention, records)
     check_k4(torch, int4_matvec, records)
     check_k5(torch, flash_attention, records)
+    check_k2(torch, msdeform, records)
+    check_k5_bwd(torch, flash_attention, records)
 
     log("== small slice (tiny config, f32: card kernels vs CPU plain)")
     check_small_slice(torch, np)
@@ -1041,6 +1391,17 @@ def main():
 
     log("== dense pixel decoder (panoptic, attention_mode='dense', use_flash)")
     paths.update(dense_slice(torch, np, card))
+    torch.cuda.empty_cache()
+
+    log("== small training (tiny config, f32: card kernels vs CPU plain)")
+    paths.update(train_small(torch, np))
+
+    log("== training (PSALMConfig(), deformable, bf16, Trainer.step)")
+    paths.update(train_slice(torch, np, card, "deformable"))
+    torch.cuda.empty_cache()
+
+    log("== training, dense pixel decoder (attention_mode='dense', 2 heads)")
+    paths.update(train_slice(torch, np, card, "dense"))
 
     bad = [m for m in sys.modules if m in ("jax", "flax", "optax")
            or m == "psalm_tpu" or m.startswith("psalm_tpu.")]
@@ -1059,7 +1420,8 @@ def main():
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
-            **{k: r[k] for k in ("int4pack_ms", "rtol", "atol") if k in r}})
+            **{k: r[k] for k in ("int4pack_ms", "rtol", "atol",
+                                 "worst_of_limit") if k in r}})
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

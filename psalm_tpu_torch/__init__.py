@@ -1,5 +1,5 @@
 """psalm_tpu_torch: PSALM in PyTorch, with hand-written CUDA kernels for
-Hopper (H100): the COCO-panoptic eval path and the chat-serving path.
+Hopper (H100): the eval tasks, chat serving and training.
 
 The JAX package ``psalm_tpu`` is the reference the port is held against in
 the tests. The port imports nothing of it: it keeps its own copies of the

@@ -26,6 +26,11 @@
 // them with warp shuffles. Each 32-channel slice of a staged row sits at a
 // stride of 33 floats, so the HD/32 slices that one warp reads at once lie
 // in different banks. Tensor cores (mma/wgmma) and TMA are later work.
+//
+// For training, the kernel also writes each row's log-sum-exp, lse =
+// log sum_j exp(q k_j^T * sm_scale) in f32 [B*h, L], which the backward
+// (flash_attention_bwd.cu) recomputes the probabilities from, as the stock
+// kernel saves its l and m for its backward.
 
 #include "common.cuh"
 
@@ -41,7 +46,8 @@ template <typename T, int HD>
 __global__ void flash_attention_kernel(const T* __restrict__ q,
                                        const T* __restrict__ k,
                                        const T* __restrict__ v,
-                                       T* __restrict__ out, int L,
+                                       T* __restrict__ out,
+                                       float* __restrict__ lse, int L,
                                        float scale_log2, int causal) {
   constexpr int kParts = HD / kSlice;  // threads per query row
   constexpr int kRowStride = kParts * kSliceStride;
@@ -128,13 +134,18 @@ __global__ void flash_attention_kernel(const T* __restrict__ q,
     T* orow = out + (head * L + row) * HD + part * kSlice;
 #pragma unroll
     for (int d = 0; d < kSlice; ++d) orow[d] = from_f32<T>(acc[d] * inv);
+    // mx and the logits are in log2 units (q pre-scaled by log2 e)
+    if (lse != nullptr && part == 0) {
+      lse[head * L + row] = (mx + log2f(denom)) * 0.6931471805599453f;
+    }
   }
 }
 
 template <typename T, int HD>
 cudaError_t launch_flash_attention(const void* q, const void* k, const void* v,
-                                   void* out, int BH, int L, int causal,
-                                   float scale, cudaStream_t stream) {
+                                   void* out, float* lse, int BH, int L,
+                                   int causal, float scale,
+                                   cudaStream_t stream) {
   constexpr int kParts = HD / kSlice;
   const size_t smem = 2ull * kCols * kParts * kSliceStride * sizeof(float);
   auto kernel = flash_attention_kernel<T, HD>;
@@ -150,25 +161,26 @@ cudaError_t launch_flash_attention(const void* q, const void* k, const void* v,
   const float log2e = 1.4426950408889634f;
   kernel<<<grid, kRows * kParts, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), L, scale * log2e,
+      static_cast<const T*>(v), static_cast<T*>(out), lse, L, scale * log2e,
       causal);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_head_dim(int hd, const void* q, const void* k,
-                              const void* v, void* out, int BH, int L,
-                              int causal, float scale, cudaStream_t stream) {
+                              const void* v, void* out, float* lse, int BH,
+                              int L, int causal, float scale,
+                              cudaStream_t stream) {
   switch (hd) {
     case 32:
-      return launch_flash_attention<T, 32>(q, k, v, out, BH, L, causal, scale,
-                                           stream);
+      return launch_flash_attention<T, 32>(q, k, v, out, lse, BH, L, causal,
+                                           scale, stream);
     case 64:
-      return launch_flash_attention<T, 64>(q, k, v, out, BH, L, causal, scale,
-                                           stream);
+      return launch_flash_attention<T, 64>(q, k, v, out, lse, BH, L, causal,
+                                           scale, stream);
     case 128:
-      return launch_flash_attention<T, 128>(q, k, v, out, BH, L, causal, scale,
-                                            stream);
+      return launch_flash_attention<T, 128>(q, k, v, out, lse, BH, L, causal,
+                                            scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -176,21 +188,25 @@ cudaError_t dispatch_head_dim(int hd, const void* q, const void* k,
 
 }  // namespace psalm
 
-// q, k, v and out [BH, L, hd] contiguous in `dtype`; hd 32, 64 or 128.
-// Returns cudaGetLastError().
+// q, k, v and out [BH, L, hd] contiguous in `dtype`; hd 32, 64 or 128. lse
+// [BH, L] f32, or null when the caller needs no backward. Returns
+// cudaGetLastError().
 extern "C" int psalm_flash_attention_fwd(const void* q, const void* k,
-                                         const void* v, void* out, int dtype,
-                                         int BH, int L, int hd, int causal,
-                                         float scale, void* stream) {
+                                         const void* v, void* out, void* lse,
+                                         int dtype, int BH, int L, int hd,
+                                         int causal, float scale,
+                                         void* stream) {
   using namespace psalm;
   if (BH < 0 || L < 0) return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == kFloat32) {
-    err = dispatch_head_dim<float>(hd, q, k, v, out, BH, L, causal, scale, st);
+    err = dispatch_head_dim<float>(hd, q, k, v, out, static_cast<float*>(lse),
+                                   BH, L, causal, scale, st);
   } else if (dtype == kBFloat16) {
-    err = dispatch_head_dim<__nv_bfloat16>(hd, q, k, v, out, BH, L, causal,
-                                           scale, st);
+    err = dispatch_head_dim<__nv_bfloat16>(hd, q, k, v, out,
+                                           static_cast<float*>(lse), BH, L,
+                                           causal, scale, st);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -26,21 +26,12 @@
 // together. The TPU kernels' window slabs, separable one-hot matmuls and lane
 // packing existed only because TPU gathers are loop-bound; a GPU gathers
 // natively, so the kernel needs no window and is exact for any offset.
-// Coordinate arithmetic uses the _rn intrinsics so that no multiply-add is
-// contracted into an FMA: the clamp and floor then round exactly as the f32
-// reference does.
+// The coordinates, clamp and corner validity come from sample_taps
+// (msdeform_common.cuh), which the backward K2 shares.
 
-#include "common.cuh"
+#include "msdeform_common.cuh"
 
 namespace psalm {
-
-constexpr int kMaxLevels = 8;
-
-struct Levels {
-  int h[kMaxLevels];
-  int w[kMaxLevels];
-  int start[kMaxLevels];
-};
 
 template <typename T, bool kClamp>
 __global__ void msdeform_fwd_kernel(const T* __restrict__ value,
@@ -73,22 +64,12 @@ __global__ void msdeform_fwd_kernel(const T* __restrict__ value,
         ry = ref[(static_cast<long long>(q) * L + l) * 2 + 1];
       }
       for (int p = 0; p < P; ++p) {
-        float x = __fsub_rn(__fmul_rn(loc_w[(l * P + p) * 2 + 0], (float)W), 0.5f);
-        float y = __fsub_rn(__fmul_rn(loc_w[(l * P + p) * 2 + 1], (float)H), 0.5f);
-        if (kClamp) {
-          x = __fadd_rn(rx, fminf(fmaxf(__fsub_rn(x, rx), -radius), radius));
-          y = __fadd_rn(ry, fminf(fmaxf(__fsub_rn(y, ry), -radius), radius));
-        }
-        const float x0 = floorf(x), y0 = floorf(y);
-        const float fx = __fsub_rn(x, x0), fy = __fsub_rn(y, y0);
+        const Taps t = sample_taps<kClamp>(loc_w[(l * P + p) * 2 + 0],
+                                           loc_w[(l * P + p) * 2 + 1], H, W,
+                                           rx, ry, radius);
+        const float fx = t.fx, fy = t.fy;
         const float gx = 1.f - fx, gy = 1.f - fy;
-        // corner validity from float coordinates: no int overflow for any loc
-        const bool vx0 = x0 >= 0.f && x0 < (float)W;
-        const bool vx1 = x0 + 1.f >= 0.f && x0 + 1.f < (float)W;
-        const bool vy0 = y0 >= 0.f && y0 < (float)H;
-        const bool vy1 = y0 + 1.f >= 0.f && y0 + 1.f < (float)H;
-        const int xi = vx0 || vx1 ? static_cast<int>(x0) : 0;
-        const int yi = vy0 || vy1 ? static_cast<int>(y0) : 0;
+        const int xi = t.xi, yi = t.yi;
         float s = 0.f;
         auto tap = [&](bool ok, int yy, int xx, float wt) {
           if (ok) {
@@ -96,10 +77,10 @@ __global__ void msdeform_fwd_kernel(const T* __restrict__ value,
                                      static_cast<long long>(m) * D + d]);
           }
         };
-        tap(vy0 && vx0, yi, xi, gy * gx);
-        tap(vy0 && vx1, yi, xi + 1, gy * fx);
-        tap(vy1 && vx0, yi + 1, xi, fy * gx);
-        tap(vy1 && vx1, yi + 1, xi + 1, fy * fx);
+        tap(t.vy0 && t.vx0, yi, xi, gy * gx);
+        tap(t.vy0 && t.vx1, yi, xi + 1, gy * fx);
+        tap(t.vy1 && t.vx0, yi + 1, xi, fy * gx);
+        tap(t.vy1 && t.vx1, yi + 1, xi + 1, fy * fx);
         acc += to_f32(attn_w[l * P + p]) * s;
       }
     }
@@ -143,17 +124,10 @@ extern "C" int psalm_msdeform_fwd(const void* value, const void* loc,
                                   int L, int P, const void* shapes, float radius,
                                   int clamp, void* stream) {
   using namespace psalm;
-  if (L < 1 || L > kMaxLevels) return static_cast<int>(cudaErrorInvalidValue);
-  const int* hw = static_cast<const int*>(shapes);
   Levels lv{};
-  int start = 0;
-  for (int l = 0; l < L; ++l) {
-    lv.h[l] = hw[2 * l];
-    lv.w[l] = hw[2 * l + 1];
-    lv.start[l] = start;
-    start += lv.h[l] * lv.w[l];
+  if (!make_levels(shapes, L, S, &lv)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (start != S) return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == kFloat32) {

@@ -35,6 +35,11 @@ takes bf16 products with f32 accumulation: the same values, since bf16
 products are exact in f32), and the probabilities are cast to bf16 for the
 product with the cached values, as in JAX's cache branch.
 
+With ``remat`` (gradient checkpointing, ``nn.remat`` per decoder layer in
+JAX), a full-sequence forward that records gradients keeps only each
+layer's input and recomputes the layer in the backward
+(``torch.utils.checkpoint``, non-reentrant).
+
 Parameter names are the released checkpoint's (``model.embed_tokens``,
 ``model.layers.N.*``, ``model.final_layernorm``).
 """
@@ -47,6 +52,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from psalm_tpu_torch.config import PhiConfig
 from psalm_tpu_torch.models.layers import LayerNorm
@@ -201,12 +207,13 @@ class PhiModel(nn.Module):
     """Embedding + decoder stack + final LayerNorm, on input embeddings."""
 
     def __init__(self, cfg: PhiConfig, dtype=torch.float32, device=None,
-                 use_flash: bool = False):
+                 use_flash: bool = False, remat: bool = False):
         super().__init__()
         if cfg.lora_rank:
             raise NotImplementedError("LoRA adapters are not ported")
         self.cfg = cfg
         self.dtype = dtype
+        self.remat = remat
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
                                          device=device, _weight=torch.empty(
                                              cfg.vocab_size, cfg.hidden_size,
@@ -263,8 +270,12 @@ class PhiModel(nn.Module):
         cos, sin = rotary_tables(positions, self.cfg.rotary_dim,
                                  self.cfg.rope_theta)
         x = inputs_embeds
+        remat = self.remat and cache is None and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
-            x = layer(x, bias, cos, sin, cache, i, slots)
+            if remat:
+                x = checkpoint(layer, x, bias, cos, sin, use_reentrant=False)
+            else:
+                x = layer(x, bias, cos, sin, cache, i, slots)
         if cache is not None:
             if slots is None:
                 cache.span = L

@@ -14,6 +14,11 @@ the JAX window modes' clamp. ``"dense"`` replaces the sampler with
 through kernel K5 (``psalm_tpu_torch/ops/flash_attention.py``). Per-point
 radii are not ported.
 
+With ``remat`` (``nn.remat`` per encoder layer in JAX), a forward that
+records gradients keeps only each encoder layer's input and recomputes the
+layer in the backward (``torch.utils.checkpoint``, non-reentrant), so K1 (or
+K5) runs once more per layer in the backward.
+
 Parameter names are the released checkpoint's (``pixel_decoder.*``).
 """
 
@@ -26,6 +31,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from psalm_tpu_torch.config import PixelDecoderConfig
 from psalm_tpu_torch.models.layers import (Conv2d, Dense, GroupNorm, LayerNorm,
@@ -184,8 +190,9 @@ class MSDeformAttnPixelDecoder(nn.Module):
     transformer_encoder_feature, multi_scale_features)."""
 
     def __init__(self, cfg: PixelDecoderConfig, dtype=torch.float32,
-                 device=None):
+                 device=None, remat: bool = False):
         super().__init__()
+        self.remat = remat
         mode = cfg.attention_mode
         if cfg.window_point_radii:
             raise NotImplementedError(
@@ -230,8 +237,13 @@ class MSDeformAttnPixelDecoder(nn.Module):
                 msdeform.reference_grid(shapes)).to(src.device)
 
         x = src
+        remat = self.remat and torch.is_grad_enabled()
         for layer in self.transformer.encoder.layers:
-            x = layer(x, pos, ref_points, shapes, ref_pixels)
+            if remat:
+                x = checkpoint(layer, x, pos, ref_points, shapes, ref_pixels,
+                               use_reentrant=False)
+            else:
+                x = layer(x, pos, ref_points, shapes, ref_pixels)
 
         out: List[torch.Tensor] = []
         start = 0

@@ -15,7 +15,18 @@ Counterpart of ``psalm_tpu/models/psalm.py`` for two paths:
   * what chat generation calls (``models/generation.py``): the image
     tokens (``encode_images``), the spliced embeddings
     (``assemble_embeddings``), Phi with a KV cache (``model``, a
-    ``PhiModel``) and the ``lm_head`` logits.
+    ``PhiModel``) and the ``lm_head`` logits;
+  * the training forward (``forward(..., train=True)``, what
+    ``train/train.py`` differentiates): the vision tower runs under
+    ``torch.no_grad()``, the counterpart of JAX's ``stop_gradient`` on the
+    frozen tower's features (the projector after it trains, its BatchNorm
+    on the running statistics as always); a ``random_idx`` in the batch
+    reorders the class-name embeddings and their validity; and
+    ``compute_logits=True`` adds the ``lm_head`` logits (``"logits"``) for
+    the conversation loss. ``remat`` checkpoints Phi's decoder layers and,
+    unless ``remat_pixel`` says otherwise, the pixel decoder's encoder
+    layers. Training the tower (``train_backbone=True``) needs a backward of
+    K3 and raises ``NotImplementedError``.
 
 Parameter names are the released checkpoint's torch keys, so
 ``load_state_dict`` takes a released-format state dict directly, or the
@@ -68,9 +79,9 @@ class PSALMBackbone(PhiModel):
     """Phi with the vision tower and projector beside it (``model.*``)."""
 
     def __init__(self, cfg: PSALMConfig, dtype=torch.float32, device=None,
-                 use_flash: bool = False):
+                 use_flash: bool = False, remat: bool = False):
         super().__init__(cfg.phi, dtype=dtype, device=device,
-                         use_flash=use_flash)
+                         use_flash=use_flash, remat=remat)
         self.vision_tower = SwinTransformer(cfg.swin, dtype=dtype, device=device)
         self.mm_projector = ResNetSwinProjector(cfg.projector, dtype=dtype,
                                                 device=device)
@@ -83,34 +94,46 @@ class PSALM(nn.Module):
     ``use_flash=True`` does in JAX (``bench.py`` builds the eval model so)."""
 
     def __init__(self, cfg: PSALMConfig, dtype=torch.float32, device="cuda",
-                 use_flash: bool = False):
+                 use_flash: bool = False, remat: bool = False,
+                 remat_pixel: Optional[bool] = None,
+                 train_backbone: bool = False):
         super().__init__()
+        if train_backbone:
+            raise NotImplementedError(
+                "train_backbone=True: training the Swin tower needs a "
+                "backward of K3 (csrc/swin_attention.cu), which is not ported")
         self.cfg = cfg
         self.dtype = dtype
         c = cfg
         hd = c.mask_decoder.hidden_dim
         D = c.phi.hidden_size
         self.model = PSALMBackbone(cfg, dtype=dtype, device=device,
-                                   use_flash=use_flash)
+                                   use_flash=use_flash, remat=remat)
         self.lm_head = layers.Dense(D, c.phi.vocab_size, bias=c.phi.lm_head_bias,
                                     dtype=dtype, device=device)
         self.seg_query = nn.Parameter(torch.empty(c.mask_decoder.num_queries, D,
                                                   device=device))
-        self.pixel_decoder = MSDeformAttnPixelDecoder(c.pixel_decoder,
-                                                      dtype=dtype, device=device)
+        self.pixel_decoder = MSDeformAttnPixelDecoder(
+            c.pixel_decoder, dtype=dtype, device=device,
+            remat=remat if remat_pixel is None else remat_pixel)
         self.predictor = MaskDecoder(c.mask_decoder, dtype=dtype, device=device)
         for name in ("seg_query_projector", "SEG_token_projector",
                      "class_name_projector", "region_projector"):
             setattr(self, name, layers.Dense(D, hd, dtype=dtype, device=device))
 
-    def encode_images(self, images: torch.Tensor):
+    def encode_images(self, images: torch.Tensor, train: bool = False):
         """images [B, H, W, 3] (normalized, or raw uint8) -> (features
-        res2..res5, image tokens [B, N, D_llm])."""
+        res2..res5, image tokens [B, N, D_llm]). With ``train`` the frozen
+        tower records no graph, so no gradient reaches it or is kept for it."""
         if images.dtype == torch.uint8:
             mean = torch.tensor(PIXEL_MEAN, device=images.device)
             std = torch.tensor(PIXEL_STD, device=images.device)
             images = (images.float() - mean) / std
-        feats = self.model.vision_tower(images)
+        if train:
+            with torch.no_grad():
+                feats = self.model.vision_tower(images)
+        else:
+            feats = self.model.vision_tower(images)
         return feats, self.model.mm_projector(feats[-1])
 
     def sample_regions(self, image_tokens: torch.Tensor,
@@ -153,19 +176,23 @@ class PSALM(nn.Module):
                 use_seg_embedding: bool = False,
                 use_regions: bool = False,
                 max_regions: int = 0,
-                num_class_names: Optional[int] = None) -> Dict[str, torch.Tensor]:
+                num_class_names: Optional[int] = None,
+                train: bool = False,
+                compute_logits: bool = False) -> Dict[str, torch.Tensor]:
         """batch: the splicer's arrays as tensors (tok_ids, src_type, src_idx,
         attention_mask, seg_query_mask, class_name_embedding_indices,
         refer_embedding_indices, region_embedding_mask), images [B, H, W, 3]
         and, with ``use_regions``, region_points [B, R, P, 2], optionally
         region_valid [B, R] and vp_images (the previous frame, whose tokens
-        the regions are sampled from). Returns the mask decoder's outputs
-        and the LLM's last hidden state."""
+        the regions are sampled from), and optionally random_idx [B, K], the
+        training order of the class names. Returns the mask decoder's
+        outputs, the LLM's last hidden state and, with ``compute_logits``,
+        its ``lm_head`` logits."""
         c = self.cfg
-        feats, image_tokens = self.encode_images(batch["images"])
+        feats, image_tokens = self.encode_images(batch["images"], train=train)
         region_tokens = None
         if use_regions:
-            vp_tokens = (self.encode_images(batch["vp_images"])[1]
+            vp_tokens = (self.encode_images(batch["vp_images"], train=train)[1]
                          if "vp_images" in batch else image_tokens)
             region_tokens = self.sample_regions(vp_tokens,
                                                 batch["region_points"])
@@ -188,6 +215,13 @@ class PSALM(nn.Module):
             means, valid = segment_mean(
                 hidden, batch["class_name_embedding_indices"], K)
             class_name_embedding = self.class_name_projector(means)
+            ridx = batch.get("random_idx")
+            if ridx is not None:  # the training shuffle of the class names
+                ridx = ridx.long()
+                class_name_embedding = torch.gather(
+                    class_name_embedding, 1, ridx[..., None].expand(
+                        -1, -1, class_name_embedding.shape[-1]))
+                valid = torch.gather(valid, 1, ridx)
 
         SEG_embedding = None
         if use_seg_embedding:
@@ -208,6 +242,8 @@ class PSALM(nn.Module):
                              class_name_valid=valid,
                              region_embedding=region_embedding,
                              region_valid=region_valid)
+        if compute_logits:
+            out["logits"] = self.lm_head(hidden)
         return {"hidden": hidden, **out}
 
 

@@ -1,4 +1,5 @@
-"""Multi-scale deformable-attention sampling: kernel K1 and its plain twin.
+"""Multi-scale deformable-attention sampling: kernel K1, its backward K2,
+and their plain twins.
 
 Counterpart of ``psalm_tpu/ops/msdeform.py`` (the exact sampler) and of the
 window-clamped samplers ``psalm_tpu/ops/msdeform_window.py``,
@@ -23,6 +24,14 @@ clamped to +-radius target-level pixels first, with the semantics of
 [Q, L, 2] f32 (x, y) target-level pixel coordinates; by default it is the
 encoder's (Q == S, each query at its own pixel centre), built in float64 and
 cast once, as ``_ref_grid`` builds it.
+
+``ms_deform_attn`` is differentiable in value, loc and attn. On the card the
+backward is kernel K2 (``csrc/msdeform_bwd.cu``, ``ms_deform_attn_bwd``): the
+gradient AD of ``psalm_tpu/ops/msdeform.py::ms_deform_attn_xla`` gives, and
+with ``radius`` the VJP of ``psalm_tpu/ops/msdeform_window.py::
+ms_deform_attn_window`` (zero d loc on an axis whose offset was clipped).
+On the CPU it is autograd through ``ms_deform_attn_ref``, the plain twin,
+whose value gradient is likewise summed in f32 and rounded once.
 """
 
 from __future__ import annotations
@@ -35,9 +44,10 @@ import torch
 
 from psalm_tpu_torch.ops import _build
 
-#: Launches of the CUDA kernel since the last reset (the plain version and the
-#: CPU path do not count).
+#: Launches of the CUDA kernels K1 and K2 since the last reset (the plain
+#: versions and the CPU path do not count).
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 
 MAX_LEVELS = 8  # csrc/msdeform.cu::kMaxLevels
 
@@ -104,7 +114,9 @@ def ms_deform_attn_ref(value: torch.Tensor, spatial_shapes,
                        ref: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch sampler: four corner gathers per sample, weights and
     sums in f32 (``psalm_tpu/ops/msdeform.py:38-103``; with ``radius``, the
-    clamp of ``psalm_tpu/ops/msdeform_window.py:111-138``)."""
+    clamp of ``psalm_tpu/ops/msdeform_window.py:111-138``). The gathers read
+    value upcast to f32, so under autograd its gradient is summed in f32 and
+    rounded to value's type once, as K2 does."""
     shapes = as_shapes(spatial_shapes)
     _check_level_start(shapes, level_start)
     B, S, M, D = value.shape
@@ -115,7 +127,7 @@ def ms_deform_attn_ref(value: torch.Tensor, spatial_shapes,
     if radius is not None:
         ref = _ref_tensor(ref, shapes, Q, value.device)
     # [B, S, M, D] -> [B*M, S, D]; loc -> [B*M, Q, L, P, 2]; attn -> [B*M, Q, L, P]
-    value_bm = value.permute(0, 2, 1, 3).reshape(B * M, S, D)
+    value_bm = value.float().permute(0, 2, 1, 3).reshape(B * M, S, D)
     loc_bm = loc.permute(0, 2, 1, 3, 4, 5).reshape(B * M, Q, L, P, 2)
     attn_bm = attn.permute(0, 2, 1, 3, 4).reshape(B * M, Q, L, P).float()
 
@@ -145,7 +157,7 @@ def ms_deform_attn_ref(value: torch.Tensor, spatial_shapes,
             idx = (yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)).reshape(B * M, Q * P)
             g = torch.gather(value_l, 1, idx[..., None].expand(-1, -1, D))
             w = (wgt * valid).reshape(B * M, Q * P, 1)
-            sampled = sampled + g.float() * w
+            sampled = sampled + g * w
         sampled = sampled.reshape(B * M, Q, P, D)
         out = out + torch.einsum("bqpd,bqp->bqd", sampled, attn_bm[:, :, lid])
     out = out.reshape(B, M, Q, D).permute(0, 2, 1, 3).reshape(B, Q, M * D)
@@ -191,35 +203,125 @@ def _check_inputs(value, loc, attn, ref, shapes: Shapes) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def ms_deform_attn(value: torch.Tensor, spatial_shapes, level_start,
-                   loc: torch.Tensor, attn: torch.Tensor,
-                   radius: Optional[float] = None,
-                   ref: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Deformable sampler. A CPU tensor goes to the plain version; a CUDA
-    tensor launches the CUDA kernel (csrc/msdeform.cu) or raises."""
+def _launch_fwd(lib, value, shapes: Shapes, loc, attn, radius, ref):
     global LAUNCHES
-    if value.device.type == "cpu":
-        return ms_deform_attn_ref(value, spatial_shapes, level_start, loc,
-                                  attn, radius=radius, ref=ref)
+    B, S, M, D = value.shape
+    Q, L, P = loc.shape[1], loc.shape[3], loc.shape[4]
+    out = torch.empty(B, Q, M * D, dtype=value.dtype, device=value.device)
+    with torch.cuda.device(value.device):
+        rc = lib.psalm_msdeform_fwd(
+            value.data_ptr(), loc.data_ptr(), attn.data_ptr(),
+            ref.data_ptr() if radius is not None else None, out.data_ptr(),
+            _build.DTYPE_CODES[value.dtype], B, S, Q, M, D, L, P,
+            _shapes_c(shapes), float(radius) if radius is not None else 0.0,
+            int(radius is not None), _build.stream_ptr(value.device))
+    _build.check(lib, rc, "psalm_msdeform_fwd")
+    LAUNCHES += 1
+    return out
+
+
+def _shapes_c(shapes: Shapes) -> ctypes.c_void_p:
+    flat = [v for hw in shapes for v in hw]
+    return ctypes.cast((ctypes.c_int * len(flat))(*flat), ctypes.c_void_p)
+
+
+def _launch_bwd(lib, value, shapes: Shapes, loc, attn, grad_out, radius, ref):
+    """K2: (d value, d loc, d attn). d value is summed in a zeroed f32
+    buffer and rounded to value's type once."""
+    global BWD_LAUNCHES
+    B, S, M, D = value.shape
+    Q, L, P = loc.shape[1], loc.shape[3], loc.shape[4]
+    if tuple(grad_out.shape) != (B, Q, M * D) or grad_out.dtype != value.dtype \
+            or grad_out.device != value.device or not grad_out.is_contiguous():
+        raise ValueError(f"grad_out must be contiguous {value.dtype} "
+                         f"{(B, Q, M * D)} on {value.device}, got "
+                         f"{grad_out.dtype} {tuple(grad_out.shape)}")
+    grad_value = torch.zeros(B, S, M, D, dtype=torch.float32,
+                             device=value.device)
+    grad_loc = torch.empty_like(loc)
+    grad_attn = torch.empty_like(attn)
+    with torch.cuda.device(value.device):
+        rc = lib.psalm_msdeform_bwd(
+            value.data_ptr(), loc.data_ptr(), attn.data_ptr(),
+            ref.data_ptr() if radius is not None else None,
+            grad_out.data_ptr(), grad_value.data_ptr(), grad_loc.data_ptr(),
+            grad_attn.data_ptr(), _build.DTYPE_CODES[value.dtype], B, S, Q, M,
+            D, L, P, _shapes_c(shapes),
+            float(radius) if radius is not None else 0.0,
+            int(radius is not None), _build.stream_ptr(value.device))
+    _build.check(lib, rc, "psalm_msdeform_bwd")
+    BWD_LAUNCHES += 1
+    return grad_value.to(value.dtype), grad_loc, grad_attn
+
+
+def _prepare(value, spatial_shapes, level_start, loc, attn, radius, ref):
+    """The loaded library, the shapes and the clamp's reference grid, after
+    the inputs are checked."""
     lib = _build.library()
     shapes = as_shapes(spatial_shapes)
     _check_level_start(shapes, level_start)
     if radius is not None:
         ref = _ref_tensor(ref, shapes, loc.shape[1], value.device)
     _check_inputs(value, loc, attn, ref if radius is not None else None, shapes)
-    B, S, M, D = value.shape
-    Q, L, P = loc.shape[1], loc.shape[3], loc.shape[4]
-    out = torch.empty(B, Q, M * D, dtype=value.dtype, device=value.device)
-    flat = [v for hw in shapes for v in hw]
-    shapes_c = (ctypes.c_int * len(flat))(*flat)
-    with torch.cuda.device(value.device):
-        rc = lib.psalm_msdeform_fwd(
-            value.data_ptr(), loc.data_ptr(), attn.data_ptr(),
-            ref.data_ptr() if radius is not None else None, out.data_ptr(),
-            _build.DTYPE_CODES[value.dtype], B, S, Q, M, D, L, P,
-            ctypes.cast(shapes_c, ctypes.c_void_p),
-            float(radius) if radius is not None else 0.0,
-            int(radius is not None), _build.stream_ptr(value.device))
-    _build.check(lib, rc, "psalm_msdeform_fwd")
-    LAUNCHES += 1
-    return out
+    return lib, shapes, ref
+
+
+class _MSDeformAttn(torch.autograd.Function):
+    """K1 forward, K2 backward; no gradient for the shapes, radius or ref."""
+
+    @staticmethod
+    def forward(ctx, value, loc, attn, lib, shapes, radius, ref):
+        ctx.save_for_backward(value, loc, attn, ref)
+        ctx.lib, ctx.shapes, ctx.radius = lib, shapes, radius
+        return _launch_fwd(lib, value, shapes, loc, attn, radius, ref)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        value, loc, attn, ref = ctx.saved_tensors
+        grads = _launch_bwd(ctx.lib, value, ctx.shapes, loc, attn,
+                            grad_out.contiguous(), ctx.radius, ref)
+        return (*grads, None, None, None, None)
+
+
+def ms_deform_attn(value: torch.Tensor, spatial_shapes, level_start,
+                   loc: torch.Tensor, attn: torch.Tensor,
+                   radius: Optional[float] = None,
+                   ref: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Deformable sampler. A CPU tensor goes to the plain version; a CUDA
+    tensor launches the CUDA kernel (csrc/msdeform.cu) or raises. Its
+    gradient is kernel K2 on the card (csrc/msdeform_bwd.cu)."""
+    if value.device.type == "cpu":
+        return ms_deform_attn_ref(value, spatial_shapes, level_start, loc,
+                                  attn, radius=radius, ref=ref)
+    lib, shapes, ref = _prepare(value, spatial_shapes, level_start, loc, attn,
+                                radius, ref)
+    if torch.is_grad_enabled() and (value.requires_grad or loc.requires_grad
+                                    or attn.requires_grad):
+        return _MSDeformAttn.apply(value, loc, attn, lib, shapes, radius, ref)
+    return _launch_fwd(lib, value, shapes, loc, attn, radius, ref)
+
+
+def ms_deform_attn_bwd_ref(value, spatial_shapes, level_start, loc, attn,
+                           grad_out, radius: Optional[float] = None,
+                           ref: Optional[torch.Tensor] = None):
+    """The plain twin of K2: (d value, d loc, d attn) by autograd through
+    ``ms_deform_attn_ref``."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (value, loc, attn)]
+        out = ms_deform_attn_ref(leaves[0], spatial_shapes, level_start,
+                                 leaves[1], leaves[2], radius=radius, ref=ref)
+        return torch.autograd.grad(out, leaves, grad_out)
+
+
+def ms_deform_attn_bwd(value, spatial_shapes, level_start, loc, attn,
+                       grad_out, radius: Optional[float] = None,
+                       ref: Optional[torch.Tensor] = None):
+    """(d value, d loc, d attn) of ``ms_deform_attn`` for the output gradient
+    ``grad_out`` [B, Q, M * D]: ``ms_deform_attn_bwd_ref`` for a CPU tensor,
+    else kernel K2 or an error."""
+    if value.device.type == "cpu":
+        return ms_deform_attn_bwd_ref(value, spatial_shapes, level_start, loc,
+                                      attn, grad_out, radius=radius, ref=ref)
+    lib, shapes, ref = _prepare(value, spatial_shapes, level_start, loc, attn,
+                                radius, ref)
+    return _launch_bwd(lib, value, shapes, loc, attn, grad_out, radius, ref)

@@ -1,9 +1,12 @@
 """Bilinear point sampling and resize on NHWC tensors.
 
-``point_sample`` is the forward of ``psalm_tpu/ops/sampling.py::point_sample``
-(and of ``point_sample_mmgrad``, which differs only in its gradient):
+``point_sample`` is ``psalm_tpu/ops/sampling.py::point_sample_mmgrad``:
 detectron2's ``point_sample`` around ``grid_sample`` with zero padding, on
-(x, y) points in [0, 1]. ``resize_bilinear`` has the semantics of
+(x, y) points in [0, 1]. Its gradient with respect to the features is plain
+autograd through the four corner gathers (the function JAX computes there
+as dense per-axis matmuls, written for the TPU's slow scatter); the points
+get none, as ``point_sample_mmgrad`` defines (every caller's points are
+data or random draws). ``resize_bilinear`` has the semantics of
 ``jax.image.resize(..., method="bilinear", antialias=False)`` that
 ``psalm_tpu/ops/sampling.py::resize_bilinear`` uses.
 
@@ -28,8 +31,10 @@ def point_sample(feat: torch.Tensor, coords: torch.Tensor,
 
     Pixel coordinates are x * (W - 1) with ``align_corners``, else
     x * W - 0.5; the four corners' weights are taken in feat's dtype, as JAX
-    takes them, and a corner off the map contributes zero."""
+    takes them, and a corner off the map contributes zero. Differentiable in
+    feat only."""
     B, H, W, C = feat.shape
+    coords = coords.detach()
     x, y = coords[..., 0], coords[..., 1]
     if align_corners:
         px, py = x * (W - 1), y * (H - 1)

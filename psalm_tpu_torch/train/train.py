@@ -1,0 +1,332 @@
+"""Training entry point: arguments, the train config, loss logging and the
+``Trainer``.
+
+Counterpart of ``psalm_tpu/train/train.py`` on one card (reference spec:
+psalm/train/train.py, llava_trainer.py and scripts/train.sh): joint
+multi-task training with task-homogeneous batches (panoptic / instance,
+referring, region, mm_conv), lr 6e-5 cosine after a 3% warmup, bf16 compute
+with f32 parameters, gradient checkpointing, checkpoints every
+``save_steps`` keeping ``save_total_limit``, auto-resume, and per-component
+loss logging with the last-nonzero fallback of
+LLaVATrainer.compute_loss (llava_trainer.py:258-318) into
+``train_log.jsonl``.
+
+Not ported (``ROADMAP.md``): LoRA, training the vision tower, per-point
+window radii, data parallelism and ZeRO sharding, the COCO / RefCOCO dataset
+classes and the prefetching loader (``Trainer.train`` draws its batches
+synchronously), and with them the command-line ``main``, TensorBoard
+scalars, profiler traces and orbax checkpoints (``torch.save`` files
+instead).
+
+Two differences from JAX's trainer, both on the mm_conv loss: the port runs
+it with the tower frozen (JAX calls the model with ``train=False`` there, so
+its tower takes that loss's gradient), and only that loss computes the
+``lm_head`` logits (JAX computes them in every seg step too, where no loss
+reads them: they get zero gradients, which leave them unchanged).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import shutil
+import time
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from psalm_tpu_torch.config import PSALMConfig, SegTask
+from psalm_tpu_torch.data.constants import IGNORE_INDEX
+from psalm_tpu_torch.data.datasets import UnifiedTaskSampler, collate
+from psalm_tpu_torch.models.psalm import PSALM, init_weights_
+from psalm_tpu_torch.train.criterion import PSALMCriterion, UniformFn, default_uniform
+from psalm_tpu_torch.train.train_step import (TrainState, make_optimizer,
+                                              train_step)
+
+LOSS_KEYS = ["loss_mask", "loss_dice", "loss_SEG_class",
+             "loss_class_name_class", "loss_region_class", "loss_llm"]
+
+# batch keys that stay on the host
+_HOST_KEYS = ("dataset_type", "num_class_names", "image_id", "file_name",
+              "resized_hw", "original_hw")
+
+
+def parse_args(argv=None):
+    """psalm_tpu's training arguments that the Trainer reads (the dataset
+    and checkpoint paths wait with the dataset classes)."""
+    p = argparse.ArgumentParser()
+    p.add_argument("--output_dir", required=True)
+    p.add_argument("--seg_task", default="panoptic")
+    p.add_argument("--learning_rate", type=float, default=6e-5)
+    p.add_argument("--warmup_ratio", type=float, default=0.03)
+    p.add_argument("--weight_decay", type=float, default=0.0)
+    p.add_argument("--num_train_steps", type=int, default=100000)
+    p.add_argument("--per_device_train_batch_size", type=int, default=4)
+    p.add_argument("--save_steps", type=int, default=15000)
+    p.add_argument("--save_total_limit", type=int, default=1)
+    p.add_argument("--logging_steps", type=int, default=10)
+    p.add_argument("--gradient_checkpointing", type=bool, default=True)
+    p.add_argument("--bf16", type=bool, default=True)
+    p.add_argument("--tune_mm_mlp_adapter", type=bool, default=False,
+                   help="stage-1 style: checkpoint only the mm_projector "
+                        "(llava_trainer.py:231-256)")
+    p.add_argument("--pixel_decoder_mode", default="deformable",
+                   choices=["deformable", "window", "dense"],
+                   help="'window' clamps the sampling offsets to "
+                        "--window_radius pixels (K1 and K2 with a radius); "
+                        "'dense' (kernel K5, 2 heads) replaces the sampler "
+                        "with full attention over the encoder tokens")
+    p.add_argument("--window_point_radii", default="",
+                   help="per-point clamp radii for window mode (not ported: "
+                        "the pixel decoder raises)")
+    p.add_argument("--remat_pixel_decoder", type=int, default=-1,
+                   help="1/0 = force pixel-decoder gradient checkpointing "
+                        "on/off; -1 follows --gradient_checkpointing, except "
+                        "window mode at batch 1 (JAX's measured policy)")
+    p.add_argument("--window_custom_vjp", type=int, default=-1,
+                   help="window mode: JAX's manual-VJP setting, which the "
+                        "remat_pixel policy reads (the port's window "
+                        "backward is K2 either way)")
+    p.add_argument("--seed", type=int, default=42)
+    return p.parse_args(argv)
+
+
+class LossHistory:
+    """Last-nonzero fallback logging (llava_trainer.py:258-318): alternating
+    task batches zero out absent loss components; log the last seen value."""
+
+    def __init__(self):
+        self.hist: Dict[str, float] = {k: 0.0 for k in LOSS_KEYS}
+
+    def update(self, metrics: Dict[str, Any]) -> Dict[str, float]:
+        out = {}
+        for k in LOSS_KEYS:
+            v = float(metrics.get(k, 0.0))
+            if v != 0.0:
+                self.hist[k] = v
+            out[k] = self.hist[k]
+        out["loss"] = float(metrics.get("loss", 0.0))
+        if "grad_norm" in metrics:
+            out["grad_norm"] = float(metrics["grad_norm"])
+        return out
+
+
+def llm_ce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Shifted CE ignoring IGNORE_INDEX (llava_phi.py:1063-1073)."""
+    shift_logits = logits[:, :-1].float()
+    shift_labels = labels[:, 1:].long()
+    valid = shift_labels != IGNORE_INDEX
+    nll = -torch.gather(torch.log_softmax(shift_logits, -1), 2,
+                        shift_labels.clamp(min=0)[..., None])[..., 0]
+    return torch.sum(nll * valid) / valid.sum().clamp(min=1)
+
+
+def build_train_config(args) -> PSALMConfig:
+    """PSALMConfig from CLI args (the reference's training_args -> cfg path,
+    train.py:23-35), as ``psalm_tpu``'s builds it."""
+    cfg = PSALMConfig(
+        seg_task=SegTask(args.seg_task),
+        compute_dtype="bfloat16" if args.bf16 else "float32")
+    mode = getattr(args, "pixel_decoder_mode", "deformable")
+    if mode != "deformable":
+        kw = dict(attention_mode=mode)
+        if mode == "window":
+            # training headroom: offsets grow past the init magnitude and no
+            # runtime radius guard exists inside a train step
+            kw["window_radius"] = float(getattr(args, "window_radius", 8.0))
+            ppr = getattr(args, "window_point_radii", "")
+            if ppr:
+                kw["window_point_radii"] = tuple(
+                    float(r) for r in str(ppr).split(","))
+            kw["window_scan_tiles"] = False
+            kw["window_custom_vjp"] = int(getattr(args, "window_custom_vjp",
+                                                  -1)) != 0
+            kw["window_head_chunk"] = 1
+        if mode == "dense":
+            kw["transformer_nheads"] = 2
+        cfg = cfg.replace(pixel_decoder=dataclasses.replace(
+            cfg.pixel_decoder, **kw))
+    return cfg
+
+
+def remat_pixel_policy(args, cfg: PSALMConfig) -> Optional[bool]:
+    """``remat_pixel`` for PSALM (``psalm_tpu/train/train.py:195-211``):
+    --remat_pixel_decoder 1/0 forces it; by default (-1) the window mode's
+    manual VJP at per-card batch 1 skips it (JAX's measured best: that VJP
+    keeps only the op's inputs), and otherwise it follows
+    --gradient_checkpointing (None)."""
+    rp = int(getattr(args, "remat_pixel_decoder", -1))
+    if rp >= 0:
+        return rp == 1
+    if cfg.pixel_decoder.window_custom_vjp and \
+            getattr(args, "per_device_train_batch_size", 1) <= 1:
+        return False
+    return None
+
+
+def _checkpoints(output_dir: str):
+    if not os.path.isdir(output_dir):
+        return []
+    return sorted((d for d in os.listdir(output_dir)
+                   if d.startswith("checkpoint-")),
+                  key=lambda d: int(d.split("-")[1]))
+
+
+class Trainer:
+    """Trains ``model`` (a PSALM built here from ``cfg`` with random
+    weights drawn from ``args.seed`` when none is given) on ``device``.
+    ``uniform_fn`` replaces the criterion's point draws (the tests inject
+    JAX's). The frozen vision tower is left out of the optimizer."""
+
+    def __init__(self, args, cfg: Optional[PSALMConfig] = None,
+                 model: Optional[PSALM] = None, device="cuda",
+                 uniform_fn: UniformFn = default_uniform):
+        self.args = args
+        self.cfg = cfg if cfg is not None else build_train_config(args)
+        self.device = torch.device(device)
+        if model is None:
+            dtype = torch.bfloat16 if args.bf16 else torch.float32
+            model = PSALM(self.cfg, dtype=dtype, device=self.device,
+                          remat=args.gradient_checkpointing,
+                          remat_pixel=remat_pixel_policy(args, self.cfg))
+            init_weights_(model, torch.Generator(device=self.device)
+                          .manual_seed(args.seed))
+        self.model = model.train()
+        self.criterion = PSALMCriterion(self.cfg.loss,
+                                        self.cfg.mask_decoder.num_queries,
+                                        uniform_fn=uniform_fn)
+        self.trainable = [(n, p) for n, p in self.model.named_parameters()
+                          if not n.startswith("model.vision_tower.")]
+        self.optimizer = make_optimizer(
+            [p for _, p in self.trainable], args.learning_rate,
+            args.num_train_steps, args.warmup_ratio, args.weight_decay)
+        self.state = TrainState(0, self.model, self.optimizer)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            args.seed)
+        self.history = LossHistory()
+
+    # -- loss functions per task kind ---------------------------------------
+
+    def _seg_loss_fn(self, task_kwargs):
+        def loss_fn(batch, generator):
+            out = self.model(batch, train=True, **task_kwargs)
+            targets = {"masks": batch["gt_masks"], "labels": batch["gt_labels"],
+                       "valid": batch["gt_valid"]}
+            losses = self.criterion(
+                generator, out, targets,
+                compute_seg=task_kwargs.get("use_seg_embedding", False),
+                compute_class=task_kwargs.get("use_class_names", False),
+                compute_region=task_kwargs.get("use_regions", False))
+            # the reference uses mask losses only for seg batches
+            # (llava_phi.py:1133-1136)
+            return losses["loss_total"], losses
+        return loss_fn
+
+    def _mm_conv_loss_fn(self):
+        def loss_fn(batch, generator):
+            out = self.model(batch, use_class_names=False, train=True,
+                             compute_logits=True)
+            loss = llm_ce_loss(out["logits"], batch["labels"])
+            return loss, {"loss_llm": loss.detach()}
+        return loss_fn
+
+    def _step_for(self, dataset_type: str, num_class_names: int):
+        """The loss function of a batch of ``dataset_type``."""
+        if dataset_type == "mm_conv":
+            return self._mm_conv_loss_fn()
+        if dataset_type == "referring_coco":
+            return self._seg_loss_fn(dict(use_seg_embedding=True,
+                                          use_class_names=False))
+        if dataset_type == "region_coco":
+            return self._seg_loss_fn(dict(use_regions=True,
+                                          use_class_names=False))
+        # panoptic / instance
+        return self._seg_loss_fn(dict(use_class_names=True,
+                                      num_class_names=num_class_names))
+
+    def stage(self, batch_np: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """The collated numpy batch as tensors on the device (the host-only
+        keys dropped)."""
+        return {k: torch.as_tensor(np.asarray(v)).to(self.device,
+                                                     non_blocking=True)
+                for k, v in batch_np.items() if k not in _HOST_KEYS}
+
+    def step(self, batch_np: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """One training step on a collated batch; returns its metrics."""
+        dataset_type = batch_np["dataset_type"]
+        num_k = int(np.asarray(batch_np.get("num_class_names", [0]))[0])
+        loss_fn = self._step_for(dataset_type, num_k)
+        return train_step(self.state, loss_fn, self.stage(batch_np),
+                          self.generator)
+
+    # -- checkpointing -------------------------------------------------------
+
+    def save(self, step: int) -> str:
+        """``output_dir/checkpoint-{step}/checkpoint.pt``: the trainable
+        parameters (only the projector with --tune_mm_mlp_adapter), the
+        optimizer and the step; then keeps the newest ``save_total_limit``."""
+        path = os.path.join(self.args.output_dir, f"checkpoint-{step}")
+        os.makedirs(path, exist_ok=True)
+        if getattr(self.args, "tune_mm_mlp_adapter", False):
+            params = {n: p.detach() for n, p in self.trainable
+                      if n.startswith("model.mm_projector.")}
+            payload = {"params": params, "step": step}
+        else:
+            payload = {"params": {n: p.detach() for n, p in self.trainable},
+                       "optimizer": self.optimizer.state_dict(), "step": step}
+        torch.save(payload, os.path.join(path, "checkpoint.pt"))
+        for d in _checkpoints(self.args.output_dir)[:-self.args.save_total_limit]:
+            shutil.rmtree(os.path.join(self.args.output_dir, d))
+        return path
+
+    def latest_checkpoint(self) -> Optional[str]:
+        ckpts = _checkpoints(self.args.output_dir)
+        return os.path.join(self.args.output_dir, ckpts[-1]) if ckpts else None
+
+    def try_resume(self) -> int:
+        """Loads the newest checkpoint, if any (train.py:459-462); returns
+        the step to go on from."""
+        path = self.latest_checkpoint()
+        if path is None:
+            return self.state.step
+        payload = torch.load(os.path.join(path, "checkpoint.pt"),
+                             map_location=self.device)
+        params = dict(self.trainable)
+        with torch.no_grad():
+            for n, t in payload["params"].items():
+                params[n].copy_(t)
+        if "optimizer" in payload:
+            self.optimizer.load_state_dict(payload["optimizer"])
+        self.state.step = int(payload["step"])
+        print(f"resumed from {path} at step {self.state.step}")
+        return self.state.step
+
+    # -- main loop -----------------------------------------------------------
+
+    def train(self, sampler: UnifiedTaskSampler) -> TrainState:
+        """Steps from the last checkpoint (or 0) to ``num_train_steps``,
+        batches drawn from ``sampler`` and collated in turn."""
+        args = self.args
+        start_step = self.try_resume()
+        os.makedirs(args.output_dir, exist_ok=True)
+        log_path = os.path.join(args.output_dir, "train_log.jsonl")
+        t0 = time.time()
+        for step in range(start_step, args.num_train_steps):
+            batch_np = collate(sampler.next_batch())
+            metrics = self.step(batch_np)
+            if step % args.logging_steps == 0:
+                logged = self.history.update(
+                    {k: float(v) for k, v in metrics.items()})
+                logged.update(step=step, dataset_type=batch_np["dataset_type"],
+                              steps_per_sec=(step - start_step + 1)
+                              / (time.time() - t0))
+                print(json.dumps(logged))
+                with open(log_path, "a") as f:
+                    f.write(json.dumps(logged) + "\n")
+            if step > 0 and step % args.save_steps == 0:
+                self.save(step)
+        self.save(args.num_train_steps)
+        return self.state

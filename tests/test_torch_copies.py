@@ -1,7 +1,8 @@
 """The port's own copies of psalm_tpu's JAX-free modules against the
 originals: the config tree field by field and through its JSON form, the
-constants, the splicer's arrays, the chat prompt's sentinel splice and the
-image mapper, on the same inputs (exact equality)."""
+constants, the splicer's arrays, the chat prompt's sentinel splice, the
+image mapper, the training batches' task sampler and collator, and the
+matcher's host assignment, on the same inputs (exact equality)."""
 
 import dataclasses
 
@@ -156,3 +157,64 @@ def test_sample_region_points_equals_original(area):
         mask, 256, np.random.default_rng(1))
     assert got.dtype == want.dtype == np.float32 and got.shape == (256, 2)
     np.testing.assert_array_equal(got, want)
+
+
+class _Sized:
+    """A stand-in dataset of ``n`` samples of one task."""
+
+    def __init__(self, n, kind):
+        self.n, self.kind = n, kind
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        return {"i": i, "kind": self.kind}
+
+
+@pytest.mark.parametrize("shard", [(0, 1), (1, 3)])
+def test_task_sampler_copy_equals_original(shard):
+    """The same schedule of (dataset, sample) draws over three datasets with
+    ratios, across epoch reshuffles, per host shard."""
+    import psalm_tpu.data.datasets as jdatasets
+    import psalm_tpu_torch.data.datasets as tdatasets
+    sets = [_Sized(5, "a"), _Sized(2, "b"), _Sized(7, "c")]
+    kw = dict(ratios=[2, 1, 1], seed=4, shard_index=shard[0],
+              num_shards=shard[1])
+    want = jdatasets.UnifiedTaskSampler(sets, 3, **kw)
+    got = tdatasets.UnifiedTaskSampler(sets, 3, **kw)
+    for _ in range(12):
+        assert got.next_batch() == want.next_batch()
+    assert got.next_batch_indices() == want.next_batch_indices()
+
+
+@pytest.mark.parametrize("seq_bucket", [0, 128])
+def test_collate_copy_equals_original(seq_bucket):
+    import psalm_tpu.data.datasets as jdatasets
+    import psalm_tpu_torch.data.datasets as tdatasets
+    ds = tdatasets.SyntheticPanopticDataset(64, 10, 4, num_samples=2,
+                                            num_masks=3, valid_masks=2)
+    samples = [ds[0], ds[1]]
+    samples[1]["file_name"] = samples[0]["file_name"] = "x.png"
+    want = jdatasets.collate(samples, seq_bucket)
+    got = tdatasets.collate(samples, seq_bucket)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        if isinstance(want[k], np.ndarray):
+            assert got[k].dtype == want[k].dtype, k
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        else:
+            assert got[k] == want[k], k
+
+
+def test_lsa_host_copy_equals_original():
+    from psalm_tpu.train.criterion import _lsa_host as jlsa
+    from psalm_tpu_torch.train.criterion import _lsa_host as tlsa
+    rng = np.random.default_rng(0)
+    cost = rng.standard_normal((3, 7, 5)).astype(np.float32)
+    cost[0, 2, 1] = np.nan
+    cost[1, :, 3] = np.inf
+    n_valid = np.array([5, 4, 0])
+    for a, b in zip(tlsa(cost, n_valid), jlsa(cost, n_valid)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)

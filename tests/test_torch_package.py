@@ -21,7 +21,9 @@ def test_no_jax_behind_the_package():
     mods = [m.name for m in pkgutil.walk_packages(psalm_tpu_torch.__path__,
                                                   "psalm_tpu_torch.")]
     for m in ("eval.runner", "serve.model_worker", "models.generation",
-              "models.builder", "ops.int4_matvec", "config", "data.splicer"):
+              "models.builder", "ops.int4_matvec", "config", "data.splicer",
+              "data.datasets", "train.criterion", "train.train_step",
+              "train.train"):
         assert f"psalm_tpu_torch.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -269,3 +271,109 @@ def test_flash_kernel_matches_plain_version_on_the_card(dtype, rtol):
             limit = rtol * want.abs() + 1e-5
             assert ((got - want).abs() <= limit).all(), (hd, L, causal)
     assert flash_attention.LAUNCHES == n + 3 * len(flash_attention.HEAD_DIMS)
+
+
+def test_backward_wrappers_dispatch_like_the_forwards(monkeypatch):
+    """K2 and the K5 backward: the plain twins for CPU tensors (no launch
+    counted), the kernel loader for any other device."""
+    counts = (msdeform.BWD_LAUNCHES, flash_attention.BWD_LAUNCHES)
+    value, shapes, starts, loc, attn = _deform_args()
+    g = torch.randn(1, loc.shape[1], value.shape[2] * value.shape[3])
+    got = msdeform.ms_deform_attn_bwd(value, shapes, starts, loc, attn, g)
+    want = msdeform.ms_deform_attn_bwd_ref(value, shapes, starts, loc, attn, g)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    q, k, v = _flash_args()
+    out, lse = flash_attention._ref_forward(q, k, v, True, 0.3, with_lse=True)
+    got = flash_attention.flash_attention_bwd(q, k, v, out, lse, out,
+                                              causal=True, sm_scale=0.3)
+    want = flash_attention.flash_attention_bwd_ref(q, k, v, out, lse, out,
+                                                   causal=True, sm_scale=0.3)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (msdeform.BWD_LAUNCHES, flash_attention.BWD_LAUNCHES) == counts
+
+    def loader():
+        raise RuntimeError("kernel loader reached")
+
+    monkeypatch.setattr(_build, "library", loader)
+    meta = _deform_args("meta")
+    with pytest.raises(RuntimeError, match="kernel loader reached"):
+        msdeform.ms_deform_attn_bwd(*meta, g.to("meta"))
+    mq, mk, mv = _flash_args("meta")
+    with pytest.raises(RuntimeError, match="kernel loader reached"):
+        flash_attention.flash_attention_bwd(mq, mk, mv, mq, lse.to("meta"), mq,
+                                            causal=False, sm_scale=1.0)
+
+
+def test_forwards_keep_what_their_backward_needs_only_under_grad():
+    """With a gradient to compute, flash_attention saves the log-sum-exp
+    and its backward runs (the plain versions here); without, the call is
+    the plain forward and builds no graph."""
+    q, k, v = (t.requires_grad_() for t in _flash_args())
+    out = flash_attention.flash_attention(q, k, v, causal=False, sm_scale=0.3)
+    assert out.grad_fn is not None
+    out.sum().backward()
+    assert all(t.grad is not None for t in (q, k, v))
+    with torch.no_grad():
+        out = flash_attention.flash_attention(q, k, v, causal=False,
+                                              sm_scale=0.3)
+    assert out.grad_fn is None
+
+
+def _abs_rel_worst(got, want, rtol, atol_rel):
+    """Worst |got - want| / (rtol |want| + atol_rel max |want|)."""
+    got, want = got.float(), want.float()
+    limit = rtol * want.abs() + atol_rel * want.abs().max() + 1e-30
+    return ((got - want).abs() / limit).max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_matches_its_plain_twin_on_the_card(dtype):
+    """K2 against autograd through ms_deform_attn_ref on the same inputs
+    upcast to f32, exact and clamped: each element within rtol |want| +
+    1e-5 max |want|, rtol 2^-7 for the bf16 outputs (d value and d attn
+    are rounded once to bf16), 1e-5 otherwise (the atomics' f32 order)."""
+    _require_card()
+    n = msdeform.BWD_LAUNCHES
+    for radius in (None, 1.5):
+        value, shapes, starts, loc, attn = _deform_args("cuda", dtype)
+        g = torch.randn(1, loc.shape[1], value.shape[2] * value.shape[3],
+                        device="cuda").to(dtype)
+        got = msdeform.ms_deform_attn_bwd(value, shapes, starts, loc, attn, g,
+                                          radius=radius)
+        want = msdeform.ms_deform_attn_bwd_ref(
+            value.float(), shapes, starts, loc, attn.float(), g.float(),
+            radius=radius)
+        for name, a, b in zip(("value", "loc", "attn"), got, want):
+            rtol = 2.0 ** -7 if (dtype == torch.bfloat16
+                                 and name != "loc") else 1e-5
+            assert a.dtype == (torch.float32 if name == "loc" else dtype)
+            assert _abs_rel_worst(a, b, rtol, 1e-5) <= 1.0, (radius, name)
+    assert msdeform.BWD_LAUNCHES == n + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2.0 ** -7)])
+def test_flash_backward_matches_plain_version_on_the_card(dtype, rtol):
+    """The K5 backward against flash_attention_bwd_ref on the same inputs
+    (out and lse from the kernel's forward), causal and not, each head dim,
+    ragged lengths: each element within rtol |want| + 1e-5 max |want|."""
+    _require_card()
+    n = flash_attention.BWD_LAUNCHES
+    for hd in flash_attention.HEAD_DIMS:
+        for L, causal in ((37, True), (200, False), (577, True)):
+            q, k, v = _flash_args("cuda", dtype, B=2, h=3, L=L, hd=hd)
+            do = torch.randn_like(q)
+            out, lse = flash_attention._forward(q, k, v, causal, hd ** -0.5,
+                                                with_lse=True)
+            _, want_lse = flash_attention._ref_forward(
+                q, k, v, causal, hd ** -0.5, with_lse=True)
+            assert (lse - want_lse).abs().max().item() <= 1e-4
+            got = flash_attention.flash_attention_bwd(
+                q, k, v, out, lse, do, causal=causal, sm_scale=hd ** -0.5)
+            want = flash_attention.flash_attention_bwd_ref(
+                q, k, v, out, lse, do, causal=causal, sm_scale=hd ** -0.5)
+            for a, b in zip(got, want):
+                assert _abs_rel_worst(a, b, rtol, 1e-5) <= 1.0, (hd, L, causal)
+    assert flash_attention.BWD_LAUNCHES == n + 3 * len(flash_attention.HEAD_DIMS)
