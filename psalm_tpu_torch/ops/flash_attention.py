@@ -16,6 +16,11 @@ out = softmax(q k^T * sm_scale, with keys after the query masked when
 ``causal``) v, logits, softmax and accumulator in f32. The JAX branch padded
 L to a multiple of 128 for the TPU's tiles; the kernel takes any L.
 
+On the card the input's type picks the kernel, a fixed dispatch: bf16 runs
+on the tensor cores and rounds P (and in the backward dS) to bf16 before
+its product, as the stock kernel does, so it agrees with the f32 plain
+version within ``bf16_limit``; f32 runs on the CUDA cores, exact to f32.
+
 ``flash_attention`` is differentiable: when a gradient is needed, the
 forward also keeps each row's log-sum-exp (f32 [B, h, L]), and the backward
 (``flash_attention_bwd``: kernel ``csrc/flash_attention_bwd.cu`` on the card,
@@ -39,7 +44,7 @@ CAUSAL_LAUNCHES = 0
 BWD_LAUNCHES = 0
 BWD_CAUSAL_LAUNCHES = 0
 
-HEAD_DIMS = (32, 64, 128)  # csrc/flash_attention*.cu::dispatch_*head_dim
+HEAD_DIMS = (32, 64, 128)  # the kernels' instantiations in csrc
 MAX_HEADS = 65535          # B * h is the grid's y dimension
 
 # the plain versions' logits chunk: [B, h, rows, L] f32 of at most 512 MB
@@ -61,13 +66,18 @@ def _ref_logits(q, kf, r0: int, r1: int, causal: bool, sm_scale: float):
     return logits
 
 
-def _ref_forward(q, k, v, causal: bool, sm_scale: float, with_lse: bool):
+def _ref_forward(q, k, v, causal: bool, sm_scale: float, with_lse: bool,
+                 magnitude: bool = False):
     """Plain PyTorch forward: f32 einsum, softmax, einsum, over chunks of
     query rows, so that at S = 21504 it holds about 1 GB of logits and
-    probabilities at a time. Returns (out, lse or None)."""
+    probabilities at a time. Returns (out, lse or None). With ``magnitude``,
+    out is P |v| in f32 (``flash_attention_magnitude``)."""
     B, h, L, hd = q.shape
     kf, vf = k.float(), v.float()
-    out = torch.empty(B, h, L, hd, dtype=q.dtype, device=q.device)
+    if magnitude:
+        vf = vf.abs()
+    out = torch.empty(B, h, L, hd, device=q.device,
+                      dtype=torch.float32 if magnitude else q.dtype)
     lse = (torch.empty(B, h, L, dtype=torch.float32, device=q.device)
            if with_lse else None)
     rows = _ref_rows(B, h, L)
@@ -75,7 +85,8 @@ def _ref_forward(q, k, v, causal: bool, sm_scale: float, with_lse: bool):
         r1 = min(L, r0 + rows)
         logits = _ref_logits(q, kf, r0, r1, causal, sm_scale)
         probs = torch.softmax(logits, dim=-1)
-        out[:, :, r0:r1] = torch.einsum("bhqk,bhkd->bhqd", probs, vf).to(q.dtype)
+        out[:, :, r0:r1] = torch.einsum("bhqk,bhkd->bhqd", probs,
+                                        vf).to(out.dtype)
         if with_lse:
             lse[:, :, r0:r1] = torch.logsumexp(logits, dim=-1)
     return out, lse
@@ -87,15 +98,13 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _ref_forward(q, k, v, causal, sm_scale, with_lse=False)[0]
 
 
-def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool,
-                            sm_scale: float):
-    """Plain PyTorch backward: (dq, dk, dv) in the inputs' type. Written out,
-    not autograd through the forward (which would keep 3.7-14.8 GB of
-    probabilities at S = 21504): per chunk of query rows the probabilities
-    are recomputed from the log-sum-exp, P = exp(logits - lse), and with
-    D = rowsum(dout * out), dS = P (dout v^T - D):
-    dv += P^T dout, dq = dS k * sm_scale, dk += dS^T q * sm_scale; all f32."""
+def _ref_backward(q, k, v, out, lse, dout, causal: bool, sm_scale: float,
+                  magnitude: bool):
+    """The plain backward's loop (``flash_attention_bwd_ref``); with
+    ``magnitude`` each product takes the absolute values of its operands
+    and the f32 result is returned (``flash_attention_bwd_magnitude``)."""
     B, h, L, hd = q.shape
+    size = torch.abs if magnitude else (lambda t: t)
     kf, vf = k.float(), v.float()
     delta = (dout.float() * out.float()).sum(-1)
     dq = torch.empty(B, h, L, hd, dtype=torch.float32, device=q.device)
@@ -107,12 +116,63 @@ def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool,
         qc, doc = q[:, :, r0:r1].float(), dout[:, :, r0:r1].float()
         p = torch.exp(_ref_logits(q, kf, r0, r1, causal, sm_scale)
                       - lse[:, :, r0:r1, None])
-        dv += torch.einsum("bhqk,bhqd->bhkd", p, doc)
-        ds = p * (torch.einsum("bhqd,bhkd->bhqk", doc, vf)
-                  - delta[:, :, r0:r1, None])
-        dq[:, :, r0:r1] = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * sm_scale
-        dk += torch.einsum("bhqk,bhqd->bhkd", ds, qc) * sm_scale
+        dv += torch.einsum("bhqk,bhqd->bhkd", p, size(doc))
+        ds = size(p * (torch.einsum("bhqd,bhkd->bhqk", doc, vf)
+                       - delta[:, :, r0:r1, None]))
+        dq[:, :, r0:r1] = torch.einsum("bhqk,bhkd->bhqd", ds,
+                                       size(kf)) * sm_scale
+        dk += torch.einsum("bhqk,bhqd->bhkd", ds, size(qc)) * sm_scale
+    if magnitude:
+        return dq, dk, dv
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool,
+                            sm_scale: float):
+    """Plain PyTorch backward: (dq, dk, dv) in the inputs' type. Written out,
+    not autograd through the forward (which would keep 3.7-14.8 GB of
+    probabilities at S = 21504): per chunk of query rows the probabilities
+    are recomputed from the log-sum-exp, P = exp(logits - lse), and with
+    D = rowsum(dout * out), dS = P (dout v^T - D):
+    dv += P^T dout, dq = dS k * sm_scale, dk += dS^T q * sm_scale; all f32."""
+    return _ref_backward(q, k, v, out, lse, dout, causal, sm_scale,
+                         magnitude=False)
+
+
+# The bf16 kernels round one operand of a product to bf16 where the stock
+# TPU kernel does: P before P v (forward) and P^T dO (dV), dS before dS^T q
+# (dK) and dS k (dQ). Rounding to bf16 moves a value by at most 2^-8 of its
+# size, so it moves each output element by at most 2^-8 times the product
+# of the operands' absolute values: the magnitudes below.
+BF16_ROUNDOFF = 2.0 ** -8
+
+
+def flash_attention_magnitude(q, k, v, *, causal: bool, sm_scale: float
+                              ) -> torch.Tensor:
+    """P |v| in f32 [B, h, L, hd], from the plain forward's probabilities:
+    per output element, the size of the product whose P the bf16 kernel
+    rounds."""
+    return _ref_forward(q, k, v, causal, sm_scale, with_lse=False,
+                        magnitude=True)[0]
+
+
+def flash_attention_bwd_magnitude(q, k, v, out, lse, dout, *, causal: bool,
+                                  sm_scale: float):
+    """(|dS| |k| sm_scale, |dS|^T |q| sm_scale, P^T |dout|) in f32, from the
+    plain backward's P and dS: per element of (dq, dk, dv), the size of the
+    product whose dS or P the bf16 kernel rounds."""
+    return _ref_backward(q, k, v, out, lse, dout, causal, sm_scale,
+                         magnitude=True)
+
+
+def bf16_limit(want: torch.Tensor, magnitude: torch.Tensor, atol
+               ) -> torch.Tensor:
+    """Per element, the most a bf16 kernel output may differ from the plain
+    version's ``want``: one bf16 step of the output (2^-7 |want|: both round
+    an f32 value once), the operand rounding (BF16_ROUNDOFF times the
+    ``magnitude``), and ``atol``."""
+    return (2.0 ** -7 * want.float().abs() + BF16_ROUNDOFF * magnitude.float()
+            + atol)
 
 
 def _check_inputs(q, k, v, *more) -> None:
@@ -134,6 +194,9 @@ def _check_inputs(q, k, v, *more) -> None:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            # the tensor-core kernels copy 16-byte pieces of each row
+            raise ValueError(f"{name} must start on a 16-byte boundary")
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention kernel: q is on {q.device}")
 

@@ -205,6 +205,20 @@ def test_flash_wrapper_checks_inputs_before_launch(monkeypatch, bad, match):
     assert flash_attention.LAUNCHES == n
 
 
+def test_flash_wrapper_refuses_bf16_off_a_16_byte_boundary(monkeypatch):
+    """The bf16 tensor-core kernels copy 16-byte pieces of each row: a bf16
+    input that starts elsewhere is refused before any launch."""
+    monkeypatch.setattr(_build, "library", lambda: None)
+    n = flash_attention.LAUNCHES
+    q, k, v = _flash_args("meta", torch.bfloat16)
+    shifted = torch.empty(q.numel() + 1, device="meta",
+                          dtype=torch.bfloat16)[1:].view(q.shape)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        flash_attention.flash_attention(shifted, k, v, causal=True,
+                                        sm_scale=1.0)
+    assert flash_attention.LAUNCHES == n
+
+
 def _require_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU or interpret "
@@ -251,24 +265,33 @@ def test_kernels_match_plain_versions_on_the_card(dtype, atol):
         assert (got - want).abs().max().item() <= atol
 
 
+def _flash_limit(dtype, want, magnitude, atol):
+    """Per element: 1e-5 |want| + atol in f32; in bf16 ``bf16_limit`` (one
+    bf16 step of the output, and 2^-8 of the magnitude of the product whose
+    operand the kernel rounds to bf16, as the stock kernel does)."""
+    if dtype == torch.bfloat16:
+        return flash_attention.bf16_limit(want, magnitude, atol)
+    return 1e-5 * want.float().abs() + atol
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
-                                        (torch.bfloat16, 2.0 ** -7)])
-def test_flash_kernel_matches_plain_version_on_the_card(dtype, rtol):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain_version_on_the_card(dtype):
     """K5 against flash_attention_ref, causal and not, at each head dim, at
-    lengths that are no multiple of the kernel's tiles. Per element within
-    rtol |want| + 1e-5: both compute in f32 and round to the input's type,
-    so in bf16 they differ by at most one bf16 step (2^-7 of the size)."""
+    lengths that are no multiple of the kernel's tiles, each element within
+    ``_flash_limit`` (atol 1e-5): the f32 kernel and the plain version
+    differ in the order of f32 sums; the bf16 kernel also rounds P before
+    P v."""
     _require_card()
     n = flash_attention.LAUNCHES
     for hd in flash_attention.HEAD_DIMS:
         for L, causal in ((37, True), (200, False), (577, True)):
             q, k, v = _flash_args("cuda", dtype, B=2, h=3, L=L, hd=hd)
-            got = flash_attention.flash_attention(q, k, v, causal=causal,
-                                                  sm_scale=hd ** -0.5).float()
-            want = flash_attention.flash_attention_ref(
-                q, k, v, causal=causal, sm_scale=hd ** -0.5).float()
-            limit = rtol * want.abs() + 1e-5
+            kw = dict(causal=causal, sm_scale=hd ** -0.5)
+            got = flash_attention.flash_attention(q, k, v, **kw).float()
+            want = flash_attention.flash_attention_ref(q, k, v, **kw).float()
+            mag = flash_attention.flash_attention_magnitude(q, k, v, **kw)
+            limit = _flash_limit(dtype, want, mag, 1e-5)
             assert ((got - want).abs() <= limit).all(), (hd, L, causal)
     assert flash_attention.LAUNCHES == n + 3 * len(flash_attention.HEAD_DIMS)
 
@@ -353,12 +376,13 @@ def test_k2_matches_its_plain_twin_on_the_card(dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
-                                        (torch.bfloat16, 2.0 ** -7)])
-def test_flash_backward_matches_plain_version_on_the_card(dtype, rtol):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_matches_plain_version_on_the_card(dtype):
     """The K5 backward against flash_attention_bwd_ref on the same inputs
     (out and lse from the kernel's forward), causal and not, each head dim,
-    ragged lengths: each element within rtol |want| + 1e-5 max |want|."""
+    ragged lengths: each element within ``_flash_limit`` with atol 1e-5 of
+    the largest |want| (in bf16 the kernel rounds P before dv's product and
+    dS before dk's and dq's)."""
     _require_card()
     n = flash_attention.BWD_LAUNCHES
     for hd in flash_attention.HEAD_DIMS:
@@ -370,10 +394,13 @@ def test_flash_backward_matches_plain_version_on_the_card(dtype, rtol):
             _, want_lse = flash_attention._ref_forward(
                 q, k, v, causal, hd ** -0.5, with_lse=True)
             assert (lse - want_lse).abs().max().item() <= 1e-4
-            got = flash_attention.flash_attention_bwd(
-                q, k, v, out, lse, do, causal=causal, sm_scale=hd ** -0.5)
-            want = flash_attention.flash_attention_bwd_ref(
-                q, k, v, out, lse, do, causal=causal, sm_scale=hd ** -0.5)
-            for a, b in zip(got, want):
-                assert _abs_rel_worst(a, b, rtol, 1e-5) <= 1.0, (hd, L, causal)
+            kw = dict(causal=causal, sm_scale=hd ** -0.5)
+            args = (q, k, v, out, lse, do)
+            got = flash_attention.flash_attention_bwd(*args, **kw)
+            want = flash_attention.flash_attention_bwd_ref(*args, **kw)
+            mags = flash_attention.flash_attention_bwd_magnitude(*args, **kw)
+            for a, b, mag in zip(got, want, mags):
+                b = b.float()
+                limit = _flash_limit(dtype, b, mag, 1e-5 * b.abs().max())
+                assert ((a.float() - b).abs() <= limit).all(), (hd, L, causal)
     assert flash_attention.BWD_LAUNCHES == n + 3 * len(flash_attention.HEAD_DIMS)
