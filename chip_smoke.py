@@ -15,13 +15,21 @@ Phases, each of which must pass:
                  K1 deformable sampler: B=1, S=Q=21504 (32^2+64^2+128^2),
                     M=8, D=32, L=3, P=4; bf16 and f32; exact and radius=8,
                     with offsets beyond the radius and off the image border;
+                    every element within 2^-7 (bf16: one step, both round
+                    once) or 1e-5 (f32) of its size + 1e-5 of M, the twin
+                    on |value| and |attn| (the sum of absolute terms);
                  K3 Swin window attention: each Swin-B stage of a 1024^2
                     image (window 12, N=144, head dim 32), with and without
-                    the shift mask; bf16 and f32;
+                    the shift mask; bf16 (tensor cores) and f32; every
+                    element within 2^-7 |want| + 2^-8 P|v| + 1e-5 (bf16:
+                    one step, and P rounded to bf16 as the twin rounds it)
+                    or 1e-5 |want| + 1e-5 P|v| (f32);
                  K4 int4 matvec: Phi-1.5's decode linears, (K, N) = (2048,
                     2048) q/k/v/dense, (2048, 8192) fc1, (8192, 2048) fc2,
-                    group 64, B = 1, 4, 16, x in bf16 and f32; exact on
-                    one-hot rows with power-of-two scales;
+                    group 64, B = 1, 4, 16, x in bf16 and f32; within 1e-5
+                    of the output's size on random rows, exact on one-hot
+                    rows with power-of-two scales, and one kernel a call in
+                    the profiler's trace;
                  K5 attention: causal at Phi's eval shape (B=1, 32 heads of
                     64, L=640) and at L=577, bf16 and f32; non-causal over
                     the S=21504 encoder tokens with 8 heads of 32 and 2 of
@@ -44,9 +52,9 @@ Phases, each of which must pass:
                     for dq) + 1e-5 of the largest; library:
                     scaled_dot_product_attention's backward;
                  and, from the built library's SASS (cuobjdump), that the
-                    bf16 K5 forward, dK/dV and dQ kernels hold tensor-core
-                    instructions, with each K5 kernel's registers, spills
-                    and shared memory.
+                    bf16 K5 forward, dK/dV and dQ kernels and the bf16 K3
+                    kernel hold tensor-core instructions, with each K3, K4
+                    and K5 kernel's registers, spills and shared memory.
   4. small   - the whole eval slice at the tiny config in f32: kernels on the
                card against the plain versions on the CPU, same weights; the
                panoptic task, then with Phi's use_flash (heads of 32) the
@@ -134,7 +142,11 @@ NEW_TOKENS = 64
 DECODE_CHUNK = 32
 TIMED_STEPS = 32
 K4_TOL = 5e-2  # decode-step logits, K4 vs packed plain path, x max |logit|
+K4_TRACED_CALLS = 10  # calls in the trace that must show one kernel each
 
+# swin_attention.window_attention_limit, M = P|v| from the twin's P
+K3_LIMITS = {"bfloat16": "2^-7 |want| + 2^-8 M + 1e-5, M = P|v|",
+             "float32": "1e-5 |want| + 1e-5 M, M = P|v|"}
 K4_SHAPES = ((2048, 2048, "q/k/v/dense"), (2048, 8192, "fc1"),
              (8192, 2048, "fc2"))
 # the eval tasks' slice
@@ -228,12 +240,12 @@ def cuda_time_ms(fn, iters=20, warmup=3):
     return sorted(times)[len(times) // 2]
 
 
-def profiled_us(run, what, tries=10):
-    """(device us, host us) of ``run()``: the summed duration of the kernels
-    and copies in torch.profiler's CUDA trace, and the host clock around
-    it. The profiler now and then returns traces without device events,
-    several in a row (two of three tries on an H100); such a run is
-    repeated after a pause, up to ``tries`` runs, then the phase fails."""
+def device_trace(run, what, tries=10):
+    """(device events, host us) of ``run()``: the kernels and copies in
+    torch.profiler's CUDA trace, and the host clock around it. The profiler
+    now and then returns traces without device events, several in a row
+    (two of three tries on an H100); such a run is repeated after a pause,
+    up to ``tries`` runs, then the phase fails."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -246,14 +258,21 @@ def profiled_us(run, what, tries=10):
             run()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA)
-        if us > 0:
-            return us, wall_us
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if sum(e.time_range.elapsed_us() for e in events) > 0:
+            return events, wall_us
         log(f"  (torch.profiler recorded no device events for {what}, run "
             f"{attempt + 1} of {tries})")
     fail(f"torch.profiler recorded no device events for {what}: no device "
          "time")
+
+
+def profiled_us(run, what, tries=10):
+    """(device us, host us) of ``run()``: the summed duration of the kernels
+    and copies in its trace (``device_trace``), and the host clock around
+    it."""
+    events, wall_us = device_trace(run, what, tries)
+    return sum(e.time_range.elapsed_us() for e in events), wall_us
 
 
 def device_ms(fn, iters=20, warmup=3):
@@ -287,6 +306,8 @@ def dtype_name(dtype):
 def record(records, kernel, name, err, tol, fn, plain_fn, library_fn, bnd):
     """Time the kernel's call ``fn``, its plain version and the library
     call (device time), log and keep the check."""
+    if not err <= tol:
+        fail(f"{name}: max abs err {err} > {tol} ({err / tol:.4g}x)")
     ms = device_ms(fn)
     call_ms = cuda_time_ms(fn)
     plain_ms = device_ms(plain_fn, iters=10)
@@ -295,12 +316,24 @@ def record(records, kernel, name, err, tol, fn, plain_fn, library_fn, bnd):
         f"(call {call_ms:.4f} ms), plain {plain_ms:.4f} ms, library "
         f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}, bound "
         f"{bnd[0]:.4f} ms ({bnd[1]})")
-    if not err <= tol:
-        fail(f"{name}: max abs err {err} > {tol}")
     records.append({"kernel": kernel, "name": name, "max_abs_err": err,
                     "tol": tol, "ms": ms, "call_ms": call_ms,
                     "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
                     "library_ms": library_ms})
+
+
+def hold(name, got, want, limit, formula):
+    """Every element of ``got`` within ``limit`` of ``want``; logs the worst
+    element's share of its limit and fails above 1. Returns (max |got -
+    want|, max limit, worst share) for ``record``."""
+    diff = (got.float() - want.float()).abs()
+    # an element whose limit is 0 (no term reaches it) must be exact
+    worst = (diff / limit).masked_fill(diff == 0, 0.0).max().item()
+    log(f"  {name}: |out| max {want.float().abs().max().item():.4e}; largest "
+        f"|got - want| is {worst:.4f} of its limit {formula}")
+    if not worst <= 1.0:
+        fail(f"{name}: |got - want| exceeds {formula} by {worst}x")
+    return diff.max().item(), limit.max().item(), worst
 
 
 def check_k1(torch, msdeform, records):
@@ -321,7 +354,7 @@ def check_k1(torch, msdeform, records):
     attn32 = torch.softmax(torch.randn(B, S, M, L * P, generator=g, device=dev),
                            -1).reshape(B, S, M, L, P)
     starts = msdeform.level_starts(shapes)
-    for dtype, tol in ((torch.bfloat16, 3e-2), (torch.float32, 1e-4)):
+    for dtype in (torch.bfloat16, torch.float32):
         value = value32.to(dtype).contiguous()
         attn = attn32.to(dtype).contiguous()
         elt = value.element_size()
@@ -334,17 +367,35 @@ def check_k1(torch, msdeform, records):
             args = (value, shapes, starts, loc, attn)
             got = msdeform.ms_deform_attn(*args, radius=radius)
             want = msdeform.ms_deform_attn_ref(*args, radius=radius)
+            mag = msdeform.ms_deform_attn_magnitude(*args, radius=radius)
             torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
+            name = f"K1 ms_deform_attn {dtype_name(dtype)} radius={radius}"
+            formula = ("2^-7" if dtype == torch.bfloat16 else "1e-5") \
+                + " |want| + 1e-5 M, M = the twin on |value|, |attn|"
+            limit = msdeform.ms_deform_attn_limit(want, mag, dtype)
+            err, tol, worst = hold(name, got, want, limit, formula)
             # no single PyTorch call computes the multi-level deformable sum
-            record(records, "K1", f"K1 ms_deform_attn {dtype_name(dtype)} "
-                   f"radius={radius}", err, tol,
+            record(records, "K1", name, err, tol,
                    lambda: msdeform.ms_deform_attn(*args, radius=radius),
                    lambda: msdeform.ms_deform_attn_ref(*args, radius=radius),
                    None, bound(nbytes, flops, dtype_name(dtype)))
+            records[-1].update(limit=formula, worst_of_limit=worst)
 
 
 def check_k3(torch, swin_attention, records):
+    """K3 at each Swin-B stage of a 1024^2 image, every element within
+    ``window_attention_limit`` of the twin, whose bf16 P v then sums in f32
+    and rounds once."""
+    matmul = torch.backends.cuda.matmul
+    reduced = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        _check_k3(torch, swin_attention, records)
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = reduced
+
+
+def _check_k3(torch, swin_attention, records):
     import torch.nn.functional as F
     from psalm_tpu_torch.models.swin import shift_attn_mask
     dev = "cuda"
@@ -358,7 +409,7 @@ def check_k3(torch, swin_attention, records):
         qkv32 = torch.randn(nW, N, 3 * C, generator=g, device=dev)
         bias = torch.randn(h, N, N, generator=g, device=dev)
         mask = torch.from_numpy(shift_attn_mask(Hp, Hp, ws, ws // 2)).to(dev)
-        for dtype, tol in ((torch.bfloat16, 3e-2), (torch.float32, 1e-4)):
+        for dtype in (torch.bfloat16, torch.float32):
             qkv = qkv32.to(dtype).contiguous()
             q, k, v = (t.reshape(nW, N, h, hd).transpose(1, 2).contiguous()
                        for t in qkv.split(C, dim=-1))
@@ -366,8 +417,15 @@ def check_k3(torch, swin_attention, records):
                 args = (qkv, bias, m, h, hd ** -0.5)
                 got = swin_attention.window_attention(*args)
                 want = swin_attention.window_attention_ref(*args)
+                mag = swin_attention.window_attention_magnitude(*args)
                 torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs().max().item()
+                name = (f"K3 window_attention {dtype_name(dtype)} "
+                        f"stage{stage} Bn={nW} C={C} h={h} "
+                        f"{'shift-mask' if m is not None else 'no-mask'}")
+                formula = K3_LIMITS[dtype_name(dtype)]
+                limit = swin_attention.window_attention_limit(want, mag, dtype)
+                err, tol, worst = hold(name, got, want, limit, formula)
+                del mag, limit
                 am = (bias[None] if m is None else bias[None] + m[:, None])
                 am = am.to(dtype).contiguous()
                 elt = qkv.element_size()
@@ -375,15 +433,13 @@ def check_k3(torch, swin_attention, records):
                     + (m.numel() * 4 if m is not None else 0) \
                     + nW * N * C * elt
                 flops = 4 * nW * h * N * N * hd  # q k^T and p v
-                record(records, "K3", f"K3 window_attention {dtype_name(dtype)} "
-                       f"stage{stage} Bn={nW} C={C} h={h} "
-                       f"{'shift-mask' if m is not None else 'no-mask'}",
-                       err, tol,
+                record(records, "K3", name, err, tol,
                        lambda: swin_attention.window_attention(*args),
                        lambda: swin_attention.window_attention_ref(*args),
                        lambda: F.scaled_dot_product_attention(
                            q, k, v, attn_mask=am, scale=hd ** -0.5),
                        bound(nbytes, flops, dtype_name(dtype)))
+                records[-1].update(limit=formula, worst_of_limit=worst)
 
 
 def dequant_int4(torch, packed, scale, group):
@@ -434,6 +490,9 @@ def check_k4(torch, int4_matvec, records):
         pow2 = torch.exp2(torch.randint(-4, 3, scale.shape, generator=g,
                                         device=dev).float())
         w_deq = dequant_int4(torch, packed, scale, group)
+        # checked once, as Quant4Dense checks its weight: the timed calls
+        # (call_ms) are the decode step's
+        int4_matvec.check_weight(packed, scale, K, group)
         for B in (1, 4, 16):
             x32 = torch.randn(B, K, generator=g, device=dev)
             hot32 = torch.zeros(B, K, device=dev)
@@ -443,27 +502,42 @@ def check_k4(torch, int4_matvec, records):
                 x, hot = x32.to(dtype), hot32.to(dtype)
                 name = (f"K4 int4_matvec {dtype_name(dtype)} {which} B={B} "
                         f"K={K} N={N} g={group}")
-                got = int4_matvec.int4_matvec(hot, packed, pow2, group)
-                want = int4_matvec.int4_matvec_ref(hot, packed, pow2, group)
-                if not torch.equal(got, want):
-                    fail(f"{name}: not exact on one-hot rows, max err "
-                         f"{(got - want).abs().max().item()}")
                 got = int4_matvec.int4_matvec(x, packed, scale, group)
                 want = int4_matvec.int4_matvec_ref(x, packed, scale, group)
                 torch.cuda.synchronize()
                 err = (got - want).abs().max().item()
                 # f32 sums in another order: 1e-5 of the output's size
                 tol = 1e-5 * want.abs().max().item()
+                if not err <= tol:
+                    fail(f"{name}: max abs err {err} > {tol} ({err / tol:.4g}x)")
+                got = int4_matvec.int4_matvec(hot, packed, pow2, group)
+                want_hot = int4_matvec.int4_matvec_ref(hot, packed, pow2, group)
+                if not torch.equal(got, want_hot):
+                    fail(f"{name}: not exact on one-hot rows, max err "
+                         f"{(got - want_hot).abs().max().item()}")
                 w_lib = w_deq.to(dtype)
                 nbytes = x.numel() * x.element_size() + packed.numel() \
                     + scale.numel() * 4 + B * N * 4
-                record(records, "K4", name, err, tol,
-                       lambda: int4_matvec.int4_matvec(x, packed, scale, group),
+
+                def call():
+                    return int4_matvec.int4_matvec(x, packed, scale, group,
+                                                   weight_checked=True)
+
+                events, _ = device_trace(
+                    lambda: [call() for _ in range(K4_TRACED_CALLS)], name)
+                names = sorted({e.name for e in events})
+                if len(events) != K4_TRACED_CALLS or not all(
+                        "int4_matvec_kernel" in n for n in names):
+                    fail(f"{name}: {len(events)} device events in "
+                         f"{K4_TRACED_CALLS} calls ({names}), not one K4 "
+                         "kernel a call")
+                record(records, "K4", name, err, tol, call,
                        lambda: int4_matvec.int4_matvec_ref(x, packed, scale,
                                                            group),
                        lambda: torch.matmul(x, w_lib),
                        # int4 values are exact in bf16: x's type sets the rate
                        bound(nbytes, 2 * B * K * N, dtype_name(dtype)))
+                records[-1]["kernels_per_call"] = len(events) / K4_TRACED_CALLS
                 if dtype == torch.bfloat16:
                     if B == 1:  # built and checked once per weight
                         int4pack = int4pack_call(torch, packed, scale, group,
@@ -651,9 +725,12 @@ def check_k5_bwd(torch, flash_attention, records):
         del ref_out, qs, ks, vs, mags, limits
 
 
-# the bf16 K5 kernels, each instantiated at head dims 32, 64 and 128
-K5_TENSOR_CORE_KERNELS = ("flash_attention_tc_kernel",
-                          "flash_bwd_dkv_tc_kernel", "flash_bwd_dq_tc_kernel")
+# the bf16 tensor-core kernels, each at every head dim it is instantiated
+# for: K5's forward, dK/dV and dQ, and K3
+TENSOR_CORE_KERNELS = {"flash_attention_tc_kernel": (32, 64, 128),
+                       "flash_bwd_dkv_tc_kernel": (32, 64, 128),
+                       "flash_bwd_dq_tc_kernel": (32, 64, 128),
+                       "window_attention_tc_kernel": (16, 32)}
 
 
 def cuobjdump(nvcc):
@@ -663,15 +740,16 @@ def cuobjdump(nvcc):
     found = cand if os.path.exists(cand) else shutil.which("cuobjdump")
     if found is None:
         fail("cuobjdump not found beside nvcc or on PATH: cannot show that "
-             "K5 runs on the tensor cores")
+             "K3 and K5 run on the tensor cores")
     return found
 
 
 def check_tensor_cores(lib_path, nvcc):
-    """The bf16 K5 forward, dK/dV and dQ kernels of the built library hold
-    tensor-core instructions in their SASS (HMMA: mma.sync; HGMMA: wgmma),
-    at every head dim; logs each K5 kernel's registers, stack, local
-    memory (spills) and static shared memory."""
+    """The bf16 K5 forward, dK/dV and dQ kernels and the bf16 K3 kernel of
+    the built library hold tensor-core instructions in their SASS (HMMA:
+    mma.sync; HGMMA: wgmma), at every head dim; logs each K3, K4 and K5
+    kernel's registers, stack, local memory (spills) and static shared
+    memory."""
     import re
     tool = cuobjdump(nvcc)
 
@@ -691,17 +769,19 @@ def check_tensor_cores(lib_path, nvcc):
             mma[name] = 0
         elif name is not None and re.search(r"\bH(G)?MMA\b", line):
             mma[name] += 1
-    for kernel in K5_TENSOR_CORE_KERNELS:
-        for hd in (32, 64, 128):
+    for kernel, head_dims in TENSOR_CORE_KERNELS.items():
+        for hd in head_dims:
             hits = [n for f, n in mma.items() if f"{kernel}ILi{hd}E" in f]
             if not hits or min(hits) == 0:
                 fail(f"{kernel}<{hd}>: no HMMA/HGMMA in its SASS ({hits})")
-            log(f"  {kernel}<{hd}>: {hits[0]} tensor-core instructions "
-                f"(HMMA/HGMMA) in its SASS")
+            log(f"  {kernel}<{hd}>: {hits} tensor-core instructions "
+                f"(HMMA/HGMMA) in its SASS, per instantiation")
     usage = run("--dump-resource-usage").splitlines()
     for i, line in enumerate(usage):
         found = re.search(r"Function (\S+):", line)
-        if found and "flash" in found.group(1) and i + 1 < len(usage):
+        if found and i + 1 < len(usage) and any(
+                k in found.group(1) for k in ("flash", "window_attention",
+                                              "int4_matvec")):
             log(f"  {found.group(1)}: {usage[i + 1].strip()}")
 
 
@@ -1498,8 +1578,8 @@ def main():
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
-            **{k: r[k] for k in ("int4pack_ms", "limit", "worst_of_limit")
-               if k in r}})
+            **{k: r[k] for k in ("int4pack_ms", "kernels_per_call", "limit",
+                                 "worst_of_limit") if k in r}})
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

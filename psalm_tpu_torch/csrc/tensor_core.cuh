@@ -1,7 +1,7 @@
 // Tensor-core and asynchronous-copy helpers for the bf16 attention kernels
-// (flash_attention.cu, flash_attention_bwd.cu): cp.async tile copies into
-// shared memory, ldmatrix fragment loads and the warp-level bf16 product
-// mma.sync m16n8k16 with f32 accumulators.
+// (flash_attention.cu, flash_attention_bwd.cu, swin_attention.cu): cp.async
+// tile copies into shared memory, ldmatrix fragment loads and the
+// warp-level bf16 product mma.sync m16n8k16 with f32 accumulators.
 //
 // Fragment layouts of mma.sync.m16n8k16.row.col (lane = 4 g + t):
 //   A, 16 x 16 (rows x depth), 4 registers of two bf16 each:

@@ -31,7 +31,7 @@ import torch
 from torch import nn
 
 from psalm_tpu_torch.models.layers import Dense
-from psalm_tpu_torch.ops.int4_matvec import (int4_matvec,
+from psalm_tpu_torch.ops.int4_matvec import (check_weight, int4_matvec,
                                              int4_matvec_supported,
                                              unpack_int4)
 
@@ -94,15 +94,39 @@ class Quant4Dense(nn.Module):
             in_features // self.group, out_features, device=device))
         self.bias = (nn.Parameter(torch.zeros(out_features, device=device))
                      if bias else None)
+        # K4's gate per row count, and the weight that passed K4's checks
+        # (by identity and address: a moved or replaced buffer is checked
+        # anew), so that a decode step pays neither per call
+        self._supported: Dict[int, bool] = {}
+        self._checked = None
+
+    def _takes_kernel(self, rows: int) -> bool:
+        ok = self._supported.get(rows)
+        if ok is None:
+            ok = self._supported[rows] = int4_matvec_supported(
+                rows, self.in_features, self.out_features, self.group)
+        return ok
+
+    def _weight_checked(self, device: torch.device) -> bool:
+        """Whether the buffers passed ``check_weight`` (run now if not). A
+        CPU call takes the plain version and needs no check."""
+        if device.type == "cpu":
+            return False
+        p, s = self.packed, self.scale
+        key = (id(p), p.data_ptr(), id(s), s.data_ptr())
+        if self._checked != key:
+            check_weight(p, s, self.in_features, self.group)
+            self._checked = key
+        return True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         lead = x.shape[:-1]
         rows = math.prod(lead)
-        if self.storage == "pallas" and int4_matvec_supported(
-                rows, self.in_features, self.out_features, self.group):
+        if self.storage == "pallas" and self._takes_kernel(rows):
             y = int4_matvec(x.to(dt).reshape(rows, self.in_features),
-                            self.packed, self.scale, self.group)
+                            self.packed, self.scale, self.group,
+                            weight_checked=self._weight_checked(x.device))
             y = y.reshape(*lead, self.out_features).to(dt)
         else:  # prefill-shaped calls, and storage "packed"
             y = self._packed_math(x.to(dt))

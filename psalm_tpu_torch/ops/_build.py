@@ -51,9 +51,9 @@ SIGNATURES = {
     # qkv, bias, mask, out, dtype, Bn, N, C, nheads, nW, scale, stream
     "psalm_window_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                                    _P],
-    # x, packed, scale, partial, out, dtype, B, K, N, group, rows_per_split,
-    # splits, stream
-    "psalm_int4_matvec": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, packed, scale, out, dtype, B, K, N, group, cluster, tc_count,
+    # rows_per_rank, stream
+    "psalm_int4_matvec": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # q, k, v, out, lse, dtype, BH, L, hd, causal, scale, stream
     "psalm_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                                   _P],
@@ -167,4 +167,7 @@ def check(lib: ctypes.CDLL, rc: int, name: str) -> None:
 
 
 def stream_ptr(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The current stream of a tensor's CUDA device, as an int, without
+    building a ``torch.cuda.Stream`` (microseconds a call, for kernels that
+    a decode step calls by the hundred)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

@@ -16,6 +16,8 @@ so that y[b, n] = sum_k x[b, k] * q[k, n] * scale[k // g, n].
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from psalm_tpu_torch.ops import _build
@@ -25,9 +27,12 @@ from psalm_tpu_torch.ops import _build
 LAUNCHES = 0
 
 MAX_ROWS = 16
-COLUMNS_PER_BLOCK = 128  # csrc/int4_matvec.cu: 64 threads x 2 columns
-TARGET_BLOCKS = 264      # two blocks for each of the H100's 132 SMs
-MAX_SHARED_BYTES = 48 * 1024
+# csrc/int4_matvec.cu: 128 threads a block, 16 columns a thread, pieces of 8
+# packed rows (of 1 where 8 does not divide the group), clusters of at most 8
+THREADS = 128
+COLUMNS_PER_THREAD = 16
+PIECE_ROWS = 8
+MAX_CLUSTER = 8
 
 
 def int4_matvec_supported(rows: int, K: int, N: int, group: int) -> bool:
@@ -69,76 +74,100 @@ def int4_matvec_ref(x: torch.Tensor, packed: torch.Tensor,
     return torch.einsum("bgo,go->bo", part, scale.float())
 
 
+@functools.lru_cache(maxsize=None)
 def plan(B: int, K: int, N: int, group: int):
-    """(rows per split, splits): how csrc/int4_matvec.cu cuts the K/2
-    packed rows across blocks. Each split is a whole number of groups, so a
-    block sees one low and one high scale row per group; enough splits that
-    the launch has about ``TARGET_BLOCKS`` blocks; and the block's x rows fit
-    in shared memory."""
+    """(cluster, column threads, rows per rank): how csrc/int4_matvec.cu
+    cuts one call, cached per shape.
+
+    The K/2 packed rows go to the ranks of one thread-block cluster (at most
+    8), a whole number of groups each, every rank holding at least one
+    group; the last rank takes what is left. In a block of 128 threads,
+    ``tc`` threads side by side take 16 columns each and 128 / tc rows of
+    threads take pieces of 8 packed rows; ``tc`` is the largest power of two
+    (at most 32, dividing N / 16) that still gives every thread at most one
+    piece, so that a launch holds its whole matrix in flight at once."""
     half = K // 2
     n_groups = half // group
-    col_blocks = -(-N // COLUMNS_PER_BLOCK)
-    splits = max(1, min(n_groups, -(-TARGET_BLOCKS // col_blocks)))
-    groups_per_split = -(-n_groups // splits)
-    bt = 1 << max(0, B - 1).bit_length()  # rows padded to a power of two
-    cap = max(1, MAX_SHARED_BYTES // (2 * bt * group * 4))
-    groups_per_split = min(groups_per_split, cap)
-    rows = groups_per_split * group
-    return rows, -(-half // rows)
+    per_rank = -(-n_groups // min(MAX_CLUSTER, n_groups))
+    cluster = -(-n_groups // per_rank)
+    rows = per_rank * group
+    pieces = rows // (PIECE_ROWS if group % PIECE_ROWS == 0 else 1)
+    tc = 32
+    while tc > 1 and (THREADS // tc < pieces
+                      or N % (COLUMNS_PER_THREAD * tc)):
+        tc //= 2
+    return cluster, tc, rows
 
 
-def _check_inputs(x, packed, scale, group) -> None:
-    if x.device.type != "cuda":
-        raise ValueError(f"int4_matvec kernel: x is on {x.device}")
-    if x.dtype not in _build.DTYPE_CODES:
-        raise TypeError(f"int4_matvec kernel: x dtype {x.dtype} "
-                        f"(takes {list(_build.DTYPE_CODES)})")
-    if x.dim() != 2 or packed.dim() != 2:
-        raise ValueError(f"x must be [B, K] and packed [K/2, N], got "
-                         f"{tuple(x.shape)} and {tuple(packed.shape)}")
-    B, K = x.shape
-    half, N = packed.shape
-    if packed.dtype != torch.int8 or 2 * half != K:
+def check_weight(packed: torch.Tensor, scale: torch.Tensor, K: int,
+                 group: int) -> None:
+    """Raise unless the kernel takes this weight for inputs of width K: int8
+    [K/2, N] and f32 [K/group, N], contiguous, 16-byte aligned, on a CUDA
+    device. ``Quant4Dense`` runs this once per weight, not per call."""
+    if packed.dim() != 2 or packed.dtype != torch.int8 \
+            or 2 * packed.shape[0] != K:
         raise ValueError(f"packed must be int8 [{K // 2}, N], got "
                          f"{packed.dtype} {tuple(packed.shape)}")
-    if not int4_matvec_supported(B, K, N, group):
-        raise ValueError(f"int4_matvec kernel: rows={B}, K={K}, N={N}, "
-                         f"group={group} is not a supported shape")
+    N = packed.shape[1]
+    if not int4_matvec_supported(1, K, N, group):
+        raise ValueError(f"int4_matvec kernel: K={K}, N={N}, group={group} "
+                         "is not a supported shape")
     if scale.dtype != torch.float32 or tuple(scale.shape) != (K // group, N):
         raise ValueError(f"scale must be float32 {(K // group, N)}, got "
                          f"{scale.dtype} {tuple(scale.shape)}")
-    for name, t in (("x", x), ("packed", packed), ("scale", scale)):
-        if t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    for name, t in (("packed", packed), ("scale", scale)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    # the kernel reads 2 packed bytes and 2 scales per thread
-    if packed.data_ptr() % 2 or scale.data_ptr() % 8:
-        raise ValueError("packed must be 2-byte and scale 8-byte aligned")
+        if t.data_ptr() % 16:
+            # the kernel reads 16 bytes of a packed row or of a scale row
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+    if packed.device.type != "cuda" or scale.device != packed.device:
+        raise ValueError(f"int4_matvec kernel: packed on {packed.device}, "
+                         f"scale on {scale.device}")
+
+
+def _check_x(x: torch.Tensor, packed: torch.Tensor) -> None:
+    if x.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"int4_matvec kernel: x dtype {x.dtype} "
+                        f"(takes {list(_build.DTYPE_CODES)})")
+    if x.dim() != 2 or x.shape[1] != 2 * packed.shape[0]:
+        raise ValueError(f"x must be [B, {2 * packed.shape[0]}], got "
+                         f"{tuple(x.shape)}")
+    if not 1 <= x.shape[0] <= MAX_ROWS:
+        raise ValueError(f"int4_matvec kernel: {x.shape[0]} rows (takes 1 to "
+                         f"{MAX_ROWS})")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    if x.device.type != "cuda" or x.device != packed.device:
+        raise ValueError(f"int4_matvec kernel: x is on {x.device}, packed on "
+                         f"{packed.device}")
 
 
 def int4_matvec(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
-                group: int) -> torch.Tensor:
+                group: int, *, weight_checked: bool = False) -> torch.Tensor:
     """x @ dequant(packed, scale) as f32 [B, N]. A CPU tensor goes to the
     plain version; a CUDA tensor launches the CUDA kernel
-    (csrc/int4_matvec.cu) or raises."""
+    (csrc/int4_matvec.cu), one launch a call, or raises. x is checked every
+    call, the weight (``check_weight``) unless the caller has checked it."""
     global LAUNCHES
     if x.device.type == "cpu":
         return int4_matvec_ref(x, packed, scale, group)
     lib = _build.library()
-    _check_inputs(x, packed, scale, group)
+    _check_x(x, packed)
+    if not weight_checked:
+        check_weight(packed, scale, x.shape[1], group)
     B, K = x.shape
     N = packed.shape[1]
-    rows, splits = plan(B, K, N, group)
+    cluster, tc, rows = plan(B, K, N, group)
     out = torch.empty(B, N, dtype=torch.float32, device=x.device)
-    partial = (torch.empty(splits, B, N, dtype=torch.float32, device=x.device)
-               if splits > 1 else None)
-    with torch.cuda.device(x.device):
-        rc = lib.psalm_int4_matvec(
-            x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
-            partial.data_ptr() if partial is not None else None,
-            out.data_ptr(), _build.DTYPE_CODES[x.dtype], B, K, N, group, rows,
-            splits, _build.stream_ptr(x.device))
+    args = (x.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            _build.DTYPE_CODES[x.dtype], B, K, N, group, cluster, tc, rows)
+    stream = _build.stream_ptr(x.device)
+    if x.device.index == torch.cuda.current_device():  # no device switch
+        rc = lib.psalm_int4_matvec(*args, stream)
+    else:
+        with torch.cuda.device(x.device):
+            rc = lib.psalm_int4_matvec(*args, stream)
     _build.check(lib, rc, "psalm_int4_matvec")
     LAUNCHES += 1
     return out

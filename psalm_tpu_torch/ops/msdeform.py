@@ -164,6 +164,30 @@ def ms_deform_attn_ref(value: torch.Tensor, spatial_shapes,
     return out.to(value.dtype)
 
 
+def ms_deform_attn_magnitude(value: torch.Tensor, spatial_shapes,
+                             level_start, loc: torch.Tensor,
+                             attn: torch.Tensor,
+                             radius: Optional[float] = None,
+                             ref: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
+    """The twin on |value| and |attn| in f32 [B, Q, M * D]: the bilinear
+    weights are >= 0, so per output element the sum of the absolute values
+    of its terms, the size that the order of f32 sums acts on."""
+    return ms_deform_attn_ref(value.float().abs(), spatial_shapes,
+                              level_start, loc, attn.float().abs(),
+                              radius=radius, ref=ref)
+
+
+def ms_deform_attn_limit(want: torch.Tensor, magnitude: torch.Tensor,
+                         dtype: torch.dtype) -> torch.Tensor:
+    """Per element, the most K1's output may differ from the twin's
+    ``want``: 1e-5 of the ``magnitude`` (f32 sums in another order), plus
+    one bf16 step of the output in bf16 (2^-7 |want|: both sides sum in f32
+    and round once) or 1e-5 |want| in f32."""
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    return rtol * want.float().abs() + 1e-5 * magnitude.float()
+
+
 def _check_inputs(value, loc, attn, ref, shapes: Shapes) -> None:
     if value.device.type != "cuda":
         raise ValueError(f"ms_deform_attn kernel: value is on {value.device}")

@@ -18,22 +18,23 @@ from typing import Optional
 import torch
 
 from psalm_tpu_torch.ops import _build
+from psalm_tpu_torch.ops.flash_attention import bf16_limit
 
 #: Launches of the CUDA kernel since the last reset (the plain version and the
 #: CPU path do not count).
 LAUNCHES = 0
 
-# csrc/swin_attention.cu::dispatch_head_dim: Swin-B's 32 at every stage, and
-# the tiny test config's 16
+# csrc/swin_attention.cu: head dims Swin-B's 32 at every stage and the tiny
+# test config's 16; the bf16 tensor-core kernel keeps a row of S for up to
+# 192 tokens in registers; the f32 kernel stages k and v in shared memory
 HEAD_DIMS = (16, 32)
+MAX_TC_TOKENS = 192
 MAX_SHARED_BYTES = 227 * 1024
 
 
-def window_attention_ref(qkv: torch.Tensor, bias: torch.Tensor,
-                         mask: Optional[torch.Tensor], nheads: int,
-                         scale: float) -> torch.Tensor:
-    """Plain PyTorch version, a transcription of
-    ``psalm_tpu/ops/swin_attention_pallas.py::_xla_reference``."""
+def _probs(qkv, bias, mask, nheads: int, scale: float):
+    """(softmax(q k^T * scale + bias[h] (+ mask)) in f32 [Bn, h, N, N], v
+    [Bn, N, h, hd]): the twin's probabilities, q * scale in qkv's type."""
     Bn, N, C3 = qkv.shape
     C = C3 // 3
     hd = C // nheads
@@ -46,9 +47,43 @@ def window_attention_ref(qkv: torch.Tensor, bias: torch.Tensor,
         nW = mask.shape[0]
         attn = (attn.reshape(Bn // nW, nW, nheads, N, N)
                 + mask.float()[None, :, None]).reshape(Bn, nheads, N, N)
-    attn = torch.softmax(attn, dim=-1).to(qkv.dtype)
-    out = torch.einsum("bhnm,bmhd->bnhd", attn, v)
-    return out.reshape(Bn, N, C)
+    return torch.softmax(attn, dim=-1), v
+
+
+def window_attention_ref(qkv: torch.Tensor, bias: torch.Tensor,
+                         mask: Optional[torch.Tensor], nheads: int,
+                         scale: float) -> torch.Tensor:
+    """Plain PyTorch version, a transcription of
+    ``psalm_tpu/ops/swin_attention_pallas.py::_xla_reference``: P rounded
+    to qkv's type before P v."""
+    Bn, N, C3 = qkv.shape
+    attn, v = _probs(qkv, bias, mask, nheads, scale)
+    out = torch.einsum("bhnm,bmhd->bnhd", attn.to(qkv.dtype), v)
+    return out.reshape(Bn, N, C3 // 3)
+
+
+def window_attention_magnitude(qkv: torch.Tensor, bias: torch.Tensor,
+                               mask: Optional[torch.Tensor], nheads: int,
+                               scale: float) -> torch.Tensor:
+    """P |v| in f32 [Bn, N, C], from the twin's own probabilities: per
+    output element, the size of the product whose P is rounded."""
+    Bn, N, C3 = qkv.shape
+    attn, v = _probs(qkv, bias, mask, nheads, scale)
+    out = torch.einsum("bhnm,bmhd->bnhd", attn, v.float().abs())
+    return out.reshape(Bn, N, C3 // 3)
+
+
+def window_attention_limit(want: torch.Tensor, magnitude: torch.Tensor,
+                           dtype: torch.dtype) -> torch.Tensor:
+    """Per element, the most the kernel's output may differ from the twin's
+    ``want``. bf16: K5's ``bf16_limit`` with atol 1e-5, since the kernel,
+    like the twin and the Pallas kernel, rounds P to bf16 before P v (and
+    moving P by at most 2^-8 of its size moves each output element by at
+    most 2^-8 P |v|, the ``magnitude``). f32: 1e-5 of the output and of the
+    magnitude (f32 sums in another order)."""
+    if dtype == torch.bfloat16:
+        return bf16_limit(want, magnitude, 1e-5)
+    return 1e-5 * want.float().abs() + 1e-5 * magnitude.float()
 
 
 def _check_inputs(qkv, bias, mask, nheads) -> None:
@@ -63,7 +98,14 @@ def _check_inputs(qkv, bias, mask, nheads) -> None:
     C = C3 // 3
     if C % nheads or C // nheads not in HEAD_DIMS:
         raise ValueError(f"head dim {C}/{nheads} not in {HEAD_DIMS}")
-    if 2 * N * (C // nheads) * 4 > MAX_SHARED_BYTES:
+    if qkv.dtype == torch.bfloat16:
+        if N > MAX_TC_TOKENS:
+            raise ValueError(f"window of N={N} tokens: the bf16 kernel takes "
+                             f"at most {MAX_TC_TOKENS}")
+        if qkv.data_ptr() % 16:
+            # the bf16 kernel copies 16-byte pieces of each head's row
+            raise ValueError("qkv must start on a 16-byte boundary")
+    elif 2 * N * (C // nheads) * 4 > MAX_SHARED_BYTES:
         raise ValueError(f"window of N={N} tokens exceeds shared memory")
     if tuple(bias.shape) != (nheads, N, N) or bias.dtype != torch.float32:
         raise ValueError(f"bias must be float32 {(nheads, N, N)}, got "
@@ -87,7 +129,10 @@ def window_attention(qkv: torch.Tensor, bias: torch.Tensor,
                      mask: Optional[torch.Tensor], nheads: int,
                      scale: float) -> torch.Tensor:
     """Window-attention core. A CPU tensor goes to the plain version; a CUDA
-    tensor launches the CUDA kernel (csrc/swin_attention.cu) or raises."""
+    tensor launches the CUDA kernel (csrc/swin_attention.cu) or raises: bf16
+    on the tensor cores (within ``window_attention_limit`` of the twin: it
+    rounds q * scale and P where the twin does, and sums in f32 in another
+    order), f32 on the CUDA cores."""
     global LAUNCHES
     if qkv.device.type == "cpu":
         return window_attention_ref(qkv, bias, mask, nheads, scale)

@@ -54,6 +54,18 @@ _HOST_KEYS = ("dataset_type", "num_class_names", "image_id", "file_name",
               "resized_hw", "original_hw")
 
 
+def str2bool(text: str) -> bool:
+    """A boolean flag's value, as HF's TrainingArguments take it: "True",
+    "true" and "1" are true; "False", "false", "0" and "" are false;
+    anything else is an error. (``type=bool`` would turn every non-empty
+    string, "False" and "0" included, into True.)"""
+    if text in ("True", "true", "1"):
+        return True
+    if text in ("False", "false", "0", ""):
+        return False
+    raise argparse.ArgumentTypeError(f"not a boolean: {text!r}")
+
+
 def parse_args(argv=None):
     """psalm_tpu's training arguments that the Trainer reads (the dataset
     and checkpoint paths wait with the dataset classes)."""
@@ -68,9 +80,9 @@ def parse_args(argv=None):
     p.add_argument("--save_steps", type=int, default=15000)
     p.add_argument("--save_total_limit", type=int, default=1)
     p.add_argument("--logging_steps", type=int, default=10)
-    p.add_argument("--gradient_checkpointing", type=bool, default=True)
-    p.add_argument("--bf16", type=bool, default=True)
-    p.add_argument("--tune_mm_mlp_adapter", type=bool, default=False,
+    p.add_argument("--gradient_checkpointing", type=str2bool, default=True)
+    p.add_argument("--bf16", type=str2bool, default=True)
+    p.add_argument("--tune_mm_mlp_adapter", type=str2bool, default=False,
                    help="stage-1 style: checkpoint only the mm_projector "
                         "(llava_trainer.py:231-256)")
     p.add_argument("--pixel_decoder_mode", default="deformable",

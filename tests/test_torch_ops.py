@@ -141,6 +141,35 @@ def test_window_attention_matches_pallas_and_xla(masked):
     np.testing.assert_allclose(got, np.asarray(xla), rtol=0, atol=ATOL)
 
 
+@pytest.mark.parametrize("masked", [False, True])
+def test_window_attention_matches_pallas_and_xla_at_swin_b_window(masked):
+    """Swin-B's window: N = 144 tokens (12x12), 4 heads of 32 (stage 0), the
+    shift mask of a 24x24 map (4 windows, the port's shift_attn_mask equal
+    to JAX's), f32."""
+    from psalm_tpu.models.swin import _shift_attn_mask
+    from psalm_tpu_torch.models.swin import shift_attn_mask
+    ws, C, h = 12, 128, 4
+    mask = shift_attn_mask(2 * ws, 2 * ws, ws, ws // 2)
+    np.testing.assert_array_equal(mask, _shift_attn_mask(2 * ws, 2 * ws, ws,
+                                                         ws // 2))
+    nW, N = mask.shape[0], ws * ws
+    rng = np.random.default_rng(12)
+    qkv = rng.standard_normal((nW, N, 3 * C)).astype(np.float32)
+    bias = rng.standard_normal((h, N, N)).astype(np.float32)
+    scale = (C // h) ** -0.5
+    m = mask if masked else None
+    got = swin_attention.window_attention_ref(
+        torch.from_numpy(qkv), torch.from_numpy(bias),
+        torch.from_numpy(m) if masked else None, h, scale).numpy()
+    pallas = fused_window_attention(jnp.asarray(qkv), jnp.asarray(bias),
+                                    jnp.asarray(m) if masked else None, h,
+                                    scale, interpret=True)
+    xla = _xla_reference(jnp.asarray(qkv), jnp.asarray(bias),
+                         jnp.asarray(m) if masked else None, h, scale)
+    np.testing.assert_allclose(got, np.asarray(pallas), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(got, np.asarray(xla), rtol=0, atol=ATOL)
+
+
 @pytest.mark.parametrize("in_hw,out_hw", [
     ((8, 12), (16, 24)),    # up x2
     ((16, 24), (8, 12)),    # down x2

@@ -47,12 +47,12 @@ def _deform_args(device="cpu", dtype=torch.float32):
     return value, shapes, msdeform.level_starts(shapes), loc, attn
 
 
-def _swin_args(device="cpu", dtype=torch.float32):
+def _swin_args(device="cpu", dtype=torch.float32, N=16, C=32, h=2):
     g = torch.Generator().manual_seed(0)
-    qkv = torch.randn(4, 16, 3 * 32, generator=g).to(device, dtype)
-    bias = torch.randn(2, 16, 16, generator=g).to(device)
-    mask = torch.randn(2, 16, 16, generator=g).to(device)
-    return qkv, bias, mask, 2, 0.25
+    qkv = torch.randn(4, N, 3 * C, generator=g).to(device, dtype)
+    bias = torch.randn(h, N, N, generator=g).to(device)
+    mask = torch.randn(2, N, N, generator=g).to(device)
+    return qkv, bias, mask, h, 0.25
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
@@ -152,16 +152,61 @@ def test_int4_wrapper_checks_inputs_before_launch(monkeypatch):
     assert int4_matvec.LAUNCHES == n
 
 
+def _plan_cover(B, K, N, group):
+    """The rows and columns of one plan's launch: (packed row -> times
+    covered, rank of each row, column -> times covered)."""
+    cluster, tc, rows = int4_matvec.plan(B, K, N, group)
+    half = K // 2
+    piece = (int4_matvec.PIECE_ROWS if group % int4_matvec.PIECE_ROWS == 0
+             else 1)
+    row_hits, rank_of = np.zeros(half, int), np.full(half, -1)
+    for rank in range(cluster):
+        r0 = rank * rows
+        n_rows = max(0, min(rows, half - r0))
+        assert n_rows > 0, "every rank holds rows"
+        for p in range(n_rows // piece):  # a thread's piece, in one group
+            lo = r0 + p * piece
+            assert lo // group == (lo + piece - 1) // group
+            row_hits[lo:lo + piece] += 1
+            rank_of[lo:lo + piece] = rank
+    cols = int4_matvec.COLUMNS_PER_THREAD * tc
+    col_hits = np.zeros(N, int)
+    for block in range(N // cols):
+        for t in range(tc):
+            c0 = block * cols + int4_matvec.COLUMNS_PER_THREAD * t
+            col_hits[c0:c0 + int4_matvec.COLUMNS_PER_THREAD] += 1
+    return (cluster, tc, rows), row_hits, rank_of, col_hits
+
+
 @pytest.mark.parametrize("B,K,N", [(1, 2048, 2048), (4, 2048, 8192),
                                    (16, 8192, 2048), (3, 256, 128)])
 def test_int4_plan_covers_the_rows_in_whole_groups(B, K, N):
-    rows, splits = int4_matvec.plan(B, K, N, 64)
-    assert rows % 64 == 0 and splits == -(-(K // 2) // rows)
-    assert splits <= 65535
-    bt = 1 << (B - 1).bit_length()
-    assert 2 * bt * rows * 4 <= int4_matvec.MAX_SHARED_BYTES
-    if K == 2048:  # Phi's q/k/v/dense and fc1: enough blocks for 132 SMs
-        assert splits * N // int4_matvec.COLUMNS_PER_BLOCK >= 256
+    """K4's cluster cut: at most 8 ranks, each a whole number of groups,
+    every packed row and every column covered once; at Phi's shapes every
+    thread takes at most one piece."""
+    (cluster, tc, rows), row_hits, rank_of, col_hits = _plan_cover(B, K, N,
+                                                                   64)
+    assert 1 <= cluster <= int4_matvec.MAX_CLUSTER and rows % 64 == 0
+    assert (row_hits == 1).all() and (col_hits == 1).all()
+    assert (np.diff(rank_of) >= 0).all()  # ranks hold consecutive rows
+    assert tc & (tc - 1) == 0 and 1 <= tc <= 32
+    if K >= 2048:  # Phi's linears: the whole matrix in flight at once
+        assert rows // int4_matvec.PIECE_ROWS <= int4_matvec.THREADS // tc
+        assert cluster == int4_matvec.MAX_CLUSTER
+
+
+@pytest.mark.parametrize("B,K,N,group", [(1, 24, 128, 4), (2, 96, 256, 48),
+                                         (5, 4096, 384, 64),
+                                         (16, 1024, 4096, 32)])
+def test_int4_plan_covers_odd_groups_and_counts(B, K, N, group):
+    """The same cover for groups that 8 does not divide (pieces of one
+    row), fewer groups than 8 ranks, and row counts between powers of
+    two; the plan is cached per shape."""
+    assert int4_matvec.int4_matvec_supported(B, K, N, group)
+    (cluster, _, rows), row_hits, _, col_hits = _plan_cover(B, K, N, group)
+    assert cluster <= min(8, K // 2 // group) and rows % group == 0
+    assert (row_hits == 1).all() and (col_hits == 1).all()
+    assert int4_matvec.plan(B, K, N, group) is int4_matvec.plan(B, K, N, group)
 
 
 def _flash_args(device="cpu", dtype=torch.float32, B=1, h=2, L=37, hd=32):
@@ -248,21 +293,31 @@ def test_int4_kernel_matches_plain_version_on_the_card(dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
-                                        (torch.bfloat16, 2e-2)])
-def test_kernels_match_plain_versions_on_the_card(dtype, atol):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_match_plain_versions_on_the_card(dtype):
+    """K1 and K3 against their twins, every element within the kernel's
+    limit (``ms_deform_attn_limit``, ``window_attention_limit``: one bf16
+    step of the output in bf16, 1e-5 in f32, and the roundings of the
+    magnitude); K3 at N = 16 (head dim 16) and at N = 49 (a 7x7 window,
+    head dim 32: the ragged edge of the bf16 kernel's 16-row tiles)."""
     _require_card()
     for radius in (None, 1.5):
         args = _deform_args("cuda", dtype)
-        got = msdeform.ms_deform_attn(*args, radius=radius).float()
-        want = msdeform.ms_deform_attn_ref(*args, radius=radius).float()
-        assert (got - want).abs().max().item() <= atol
-    for masked in (False, True):
-        qkv, bias, mask, h, scale = _swin_args("cuda", dtype)
-        m = mask if masked else None
-        got = swin_attention.window_attention(qkv, bias, m, h, scale).float()
-        want = swin_attention.window_attention_ref(qkv, bias, m, h, scale).float()
-        assert (got - want).abs().max().item() <= atol
+        got = msdeform.ms_deform_attn(*args, radius=radius)
+        want = msdeform.ms_deform_attn_ref(*args, radius=radius)
+        mag = msdeform.ms_deform_attn_magnitude(*args, radius=radius)
+        limit = msdeform.ms_deform_attn_limit(want, mag, dtype)
+        assert ((got.float() - want.float()).abs() <= limit).all(), radius
+    for N, C, h in ((16, 32, 2), (49, 128, 4)):
+        for masked in (False, True):
+            qkv, bias, mask, _, _ = _swin_args("cuda", dtype, N=N, C=C, h=h)
+            args = (qkv, bias, mask if masked else None, h, (C // h) ** -0.5)
+            got = swin_attention.window_attention(*args)
+            want = swin_attention.window_attention_ref(*args)
+            mag = swin_attention.window_attention_magnitude(*args)
+            limit = swin_attention.window_attention_limit(want, mag, dtype)
+            assert ((got.float() - want.float()).abs() <= limit).all(), \
+                (N, masked)
 
 
 def _flash_limit(dtype, want, magnitude, atol):
@@ -404,3 +459,82 @@ def test_flash_backward_matches_plain_version_on_the_card(dtype):
                 limit = _flash_limit(dtype, b, mag, 1e-5 * b.abs().max())
                 assert ((a.float() - b).abs() <= limit).all(), (hd, L, causal)
     assert flash_attention.BWD_LAUNCHES == n + 3 * len(flash_attention.HEAD_DIMS)
+
+
+@pytest.mark.parametrize("bad,match", [
+    (dict(dtype=torch.float16), "float16"), (dict(B=17), "17 rows"),
+    (dict(B=0), "0 rows"), (dict(transposed=True), "contiguous"),
+    ({}, "meta")])
+def test_int4_wrapper_refuses_a_bad_x_before_launch(monkeypatch, bad, match):
+    """x is checked on every call, before any launch: its type, width, row
+    count, layout and device."""
+    monkeypatch.setattr(_build, "library", lambda: None)
+    n = int4_matvec.LAUNCHES
+    transposed = bad.pop("transposed", False)
+    x, packed, scale, group = _int4_args("meta", **bad)
+    if transposed:
+        x = torch.empty(x.shape[1], x.shape[0], device="meta").t()
+    with pytest.raises((ValueError, TypeError), match=match):
+        int4_matvec.int4_matvec(x, packed, scale, group)
+    assert int4_matvec.LAUNCHES == n
+
+
+def _bad_weights():
+    _, packed, scale, group = _int4_args("meta")
+    shifted = torch.empty(packed.numel() + 1, dtype=torch.int8,
+                          device="meta")[1:].view(packed.shape)
+    return [(packed.to(torch.int16), scale, "packed must be int8"),
+            (packed[:64], scale, "packed must be int8"),
+            (packed, scale.double(), "scale must be float32"),
+            (packed, scale[:, :64], "scale must be float32"),
+            (packed.t().contiguous().t(), scale, "contiguous"),
+            (shifted, scale, "16-byte boundary"),
+            (packed, scale, "packed on meta")]
+
+
+@pytest.mark.parametrize("case", range(7))
+def test_int4_weight_is_refused_before_launch(monkeypatch, case):
+    """A bad weight raises before any launch, from ``check_weight`` and
+    from a ``Quant4Dense`` of storage "pallas" (which checks its buffers
+    once per weight)."""
+    from psalm_tpu_torch.models.quant import Quant4Dense
+    monkeypatch.setattr(_build, "library", lambda: None)
+    packed, scale, match = _bad_weights()[case]
+    with pytest.raises(ValueError, match=match):
+        int4_matvec.check_weight(packed, scale, 256, 64)
+    layer = Quant4Dense(256, 128, storage="pallas", device="meta")
+    layer.packed, layer.scale = packed, scale
+    n = int4_matvec.LAUNCHES
+    with pytest.raises(ValueError, match=match):
+        layer(torch.empty(1, 256, device="meta"))
+    assert int4_matvec.LAUNCHES == n
+
+
+def test_quant4_checks_its_weight_once_per_buffer(monkeypatch):
+    """The decode step pays K4's weight check and gate once per weight and
+    row count: again only when a buffer is replaced."""
+    from psalm_tpu_torch.models import quant
+    checks, gates, calls = [], [], []
+    monkeypatch.setattr(quant, "check_weight",
+                        lambda *a: checks.append(a[2:]))
+    monkeypatch.setattr(quant, "int4_matvec_supported",
+                        lambda *a: gates.append(a) or True)
+
+    def fake(x, packed, scale, group, *, weight_checked):
+        calls.append(weight_checked)
+        return torch.zeros(x.shape[0], packed.shape[1], device=x.device)
+
+    monkeypatch.setattr(quant, "int4_matvec", fake)
+    layer = quant.Quant4Dense(256, 128, storage="pallas", device="meta")
+    x = torch.empty(2, 1, 256, device="meta")
+    for _ in range(3):
+        assert layer(x).shape == (2, 1, 128)
+    assert checks == [(256, 64)] and len(gates) == 1
+    layer.packed = layer.packed.clone()
+    layer(x)
+    layer(torch.empty(3, 256, device="meta"))
+    assert len(checks) == 2 and len(gates) == 2
+    assert calls == [True] * 5
+    cpu = quant.Quant4Dense(256, 128, storage="pallas")
+    cpu(torch.zeros(1, 256))  # the plain version: no weight check
+    assert len(checks) == 2 and calls[-1] is False

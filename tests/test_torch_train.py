@@ -300,3 +300,19 @@ def test_train_config_and_remat_policy():
     assert model.model.remat and not model.pixel_decoder.remat
     with pytest.raises(NotImplementedError, match="K3"):
         PSALM(tiny_test_config(), device="meta", train_backbone=True)
+
+
+@pytest.mark.parametrize("flag", ["--gradient_checkpointing", "--bf16",
+                                  "--tune_mm_mlp_adapter"])
+def test_boolean_flags_parse_both_spellings(flag, capsys):
+    """"True"/"true"/"1" turn a flag on, "False"/"false"/"0" and "" turn it
+    off (psalm_tpu's type=bool parses "False" and "0" as True), anything
+    else is an argparse error."""
+    argv = ["--output_dir", "/tmp/x", flag]
+    for text, want in (("True", True), ("true", True), ("1", True),
+                       ("False", False), ("false", False), ("0", False),
+                       ("", False)):
+        assert getattr(ttrain.parse_args(argv + [text]), flag[2:]) is want
+    with pytest.raises(SystemExit):
+        ttrain.parse_args(argv + ["yes"])
+    assert "not a boolean: 'yes'" in capsys.readouterr().err

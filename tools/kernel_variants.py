@@ -1,0 +1,199 @@
+#!/usr/bin/env python3
+"""Where K3's and K4's time goes: each kernel timed beside copies of itself
+with one part taken out or changed, in turns, on one card.
+
+    python3 tools/kernel_variants.py      # from the root of a checkout; one card
+
+A variant is the kernel's source with a few lines replaced, built alone by
+nvcc into a temporary directory and called through its C entry point at
+the shapes chip_smoke.py checks, bf16. A variant with a part taken out
+computes a wrong result; only its time is read. Times are device ms from
+torch.profiler (chip_smoke.device_ms), in turns: the kernel as it is, each
+variant, the kernel again.
+  K4 (Phi's three shapes, B = 1 and 4):
+    no_products  the unpack, the products and the scales replaced by a
+                 cheap use of the loaded words: the loads and the launch
+    no_cluster   the cluster barriers and the sum over the ranks taken out
+    neither      both
+    pieces_16    pieces of 16 packed rows (the plan follows)
+    cluster_4, cluster_2, cluster_1  a smaller cluster (the plan's cap)
+  K3 (Swin-B's four stages of a 1024^2 image, with and without the mask):
+    one_block    no minimum of two blocks an SM in the launch bounds
+    no_bias      the bias and mask loads replaced by zeros
+"""
+
+import ctypes
+import os
+import shutil
+import sys
+import tempfile
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import torch  # noqa: E402
+
+import chip_smoke as smoke  # noqa: E402
+from psalm_tpu_torch.models.quant import quantize_kernel_int4  # noqa: E402
+from psalm_tpu_torch.models.swin import shift_attn_mask  # noqa: E402
+from psalm_tpu_torch.ops import _build  # noqa: E402
+from psalm_tpu_torch.ops import int4_matvec as k4  # noqa: E402
+
+K4_NO_PRODUCTS = [(
+    """      float p[BS][kCols];
+      piece_dots<BS, RPT, false>(w, xl, p);
+      scale_into<BS>(acc, p, sl);
+      piece_dots<BS, RPT, true>(w, xh, p);
+      scale_into<BS>(acc, p, sh);""",
+    """#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+        acc[0][i % kCols] += __uint_as_float(
+            (w[i].x ^ w[i].y ^ w[i].z ^ w[i].w) & 0x3fffffffu) + xl[0][i] +
+            xh[0][i];
+#pragma unroll
+      for (int q = 0; q < kCols / 4; ++q) acc[0][q] += sl[q].x + sh[q].y;""")]
+K4_NO_CLUSTER = [
+    ("  cluster.sync();\n  // every rank sums",
+     "  __syncthreads();\n  // every rank sums"),
+    ("    for (int r = 0; r < ranks; ++r) v += cluster.map_shared_rank(part, r)[e];",
+     "    v = part[e];"),
+    ("  cluster.sync();  // no block leaves", "  // no block leaves")]
+# name: (edits, packed rows a piece, cluster cap)
+K4_VARIANTS = {
+    "as it is": ([], 8, 8),
+    "no_products": (K4_NO_PRODUCTS, 8, 8),
+    "no_cluster": (K4_NO_CLUSTER, 8, 8),
+    "neither": (K4_NO_PRODUCTS + K4_NO_CLUSTER, 8, 8),
+    "pieces_16": ([("constexpr int kRows = 8;", "constexpr int kRows = 16;")],
+                  16, 8),
+    "cluster_4": ([], 8, 4),
+    "cluster_2": ([], 8, 2),
+    "cluster_1": ([], 8, 1),
+}
+K3_VARIANTS = {
+    "as it is": [],
+    "one_block": [("__launch_bounds__(16 * NB, NB <= 18 ? 2 : 1)",
+                   "__launch_bounds__(16 * NB)")],
+    "no_bias": [
+        ("add = __ldg(reinterpret_cast<const float2*>(bh + at + col));",
+         "add = make_float2(0.f, 0.f);"),
+        ("const float2 m = __ldg(reinterpret_cast<const float2*>(mw + at + col));",
+         "const float2 m = make_float2(0.f, 0.f);")],
+}
+
+
+def build(work, source, variants):
+    """{name: loaded library} of each variant of csrc/``source``."""
+    csrc = _build.CSRC_DIR
+    for header in csrc.glob("*.cuh"):
+        shutil.copy(header, work)
+    text = (csrc / source).read_text()
+    nvcc = _build.find_nvcc()
+    cmds, paths = [], {}
+    for name, edits in variants.items():
+        variant = text
+        for old, new in edits:
+            if variant.count(old) != 1:
+                sys.exit(f"{source} {name}: the text to replace is not there "
+                         "once")
+            variant = variant.replace(old, new)
+        stem = os.path.join(work, f"{source[:-3]}_{name.replace(' ', '_')}")
+        with open(stem + ".cu", "w") as f:
+            f.write(variant)
+        paths[name] = stem + ".so"
+        cmds.append(_build.nvcc_command(nvcc, [stem + ".cu"], stem + ".so"))
+    _build._run_together(cmds)
+    libs = {}
+    for name, path in paths.items():
+        lib = ctypes.CDLL(path)
+        entry = ("psalm_int4_matvec" if source == "int4_matvec.cu"
+                 else "psalm_window_attention_fwd")
+        getattr(lib, entry).argtypes = _build.SIGNATURES[entry]
+        libs[name] = lib
+    return libs
+
+
+def in_turns(names):
+    """The kernel as it is, each variant, the kernel again."""
+    base = names[0]
+    return [base] + names[1:] + [base]
+
+
+def time_k4(libs):
+    g = torch.Generator(device="cuda").manual_seed(4)
+    for K, N, which in smoke.K4_SHAPES:
+        w = torch.randn(K, N, generator=g, device="cuda") * K ** -0.5
+        packed, scale = quantize_kernel_int4(w, 64)
+        for B in (1, 4):
+            x = torch.randn(B, K, generator=g, device="cuda").bfloat16()
+            out = torch.empty(B, N, device="cuda")
+            for name in in_turns(list(K4_VARIANTS)):
+                _, piece, cap = K4_VARIANTS[name]
+                k4.PIECE_ROWS, k4.MAX_CLUSTER = piece, cap
+                k4.plan.cache_clear()
+                cluster, tc, rows = k4.plan(B, K, N, 64)
+                lib = libs["as it is" if name.startswith("cluster") else name]
+
+                def call():
+                    rc = lib.psalm_int4_matvec(
+                        x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
+                        out.data_ptr(), _build.DTYPE_CODES[x.dtype], B, K, N,
+                        64, cluster, tc, rows, _build.stream_ptr(x.device))
+                    if rc:
+                        sys.exit(f"K4 {name}: CUDA error {rc}")
+
+                ms = smoke.device_ms(call, iters=50)
+                print(f"K4 {which} B={B} {name} (cluster {cluster}, "
+                      f"{16 * tc} columns a block): {ms:.5f} ms", flush=True)
+    k4.PIECE_ROWS, k4.MAX_CLUSTER = 8, 8
+    k4.plan.cache_clear()
+
+
+def time_k3(libs):
+    g = torch.Generator(device="cuda").manual_seed(3)
+    ws, N = 12, 144
+    for stage, (res, C, h) in enumerate(((256, 128, 4), (128, 256, 8),
+                                         (64, 512, 16), (32, 1024, 32))):
+        Hp = -(-res // ws) * ws
+        nW = (Hp // ws) ** 2
+        qkv = torch.randn(nW, N, 3 * C, generator=g, device="cuda").bfloat16()
+        bias = torch.randn(h, N, N, generator=g, device="cuda")
+        mask = torch.from_numpy(shift_attn_mask(Hp, Hp, ws, ws // 2)).cuda()
+        out = torch.empty(nW, N, C, dtype=torch.bfloat16, device="cuda")
+        for m in (None, mask):
+            for name in in_turns(list(K3_VARIANTS)):
+                lib = libs[name]
+
+                def call():
+                    rc = lib.psalm_window_attention_fwd(
+                        qkv.data_ptr(), bias.data_ptr(),
+                        m.data_ptr() if m is not None else None,
+                        out.data_ptr(), _build.DTYPE_CODES[qkv.dtype], nW, N,
+                        C, h, m.shape[0] if m is not None else 1,
+                        (C // h) ** -0.5, _build.stream_ptr(qkv.device))
+                    if rc:
+                        sys.exit(f"K3 {name}: CUDA error {rc}")
+
+                ms = smoke.device_ms(call, iters=50)
+                print(f"K3 stage{stage} {'shift-mask' if m is not None else 'no-mask'}"
+                      f" {name}: {ms:.5f} ms", flush=True)
+
+
+def main():
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA card")
+    print(torch.cuda.get_device_name(0), flush=True)
+    work = tempfile.mkdtemp(prefix="kernel_variants_")
+    try:
+        k4_libs = build(work, "int4_matvec.cu",
+                        {n: e for n, (e, _, _) in K4_VARIANTS.items()
+                         if not n.startswith("cluster")})
+        k3_libs = build(work, "swin_attention.cu", K3_VARIANTS)
+        time_k4(k4_libs)
+        time_k3(k3_libs)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+if __name__ == "__main__":
+    main()
