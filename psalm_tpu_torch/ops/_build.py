@@ -57,10 +57,10 @@ SIGNATURES = {
     # q, k, v, out, lse, dtype, BH, L, hd, causal, scale, stream
     "psalm_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                                   _P],
-    # value, loc, attn, ref, grad_out, grad_value, grad_loc, grad_attn,
-    # dtype, B, S, Q, M, D, L, P, shapes, radius, clamp, stream
-    "psalm_msdeform_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                           _I, _I, _I, _P, _F, _I, _P],
+    # value, loc, attn, ref, grad_out, grad_value, grad_value_acc, grad_loc,
+    # grad_attn, dtype, B, S, Q, M, D, L, P, shapes, radius, clamp, stream
+    "psalm_msdeform_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _I, _I, _I, _I, _P, _F, _I, _P],
     # q, k, v, out, dout, lse, delta, dq, dk, dv, dtype, BH, L, hd, causal,
     # scale, stream
     "psalm_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,

@@ -108,6 +108,51 @@ def _ref_tensor(ref, shapes: Shapes, Q: int, device) -> torch.Tensor:
     return ref.to(device=device, dtype=torch.float32)
 
 
+def _level_coords(loc_bm, lid: int, H: int, W: int, radius, ref):
+    """Level ``lid``'s sample coordinates in level pixels, x = loc_x W - 0.5
+    (and y), clamped to +-radius of ``ref`` when a radius is given, and
+    whether the clamp passed each axis (its gradient gate): (x, y, pass_x,
+    pass_y), [BM, Q, P] each."""
+    x = loc_bm[:, :, lid, :, 0] * W - 0.5
+    y = loc_bm[:, :, lid, :, 1] * H - 0.5
+    if radius is None:
+        return x, y, None, None
+    rx = ref[:, lid, 0][None, :, None]
+    ry = ref[:, lid, 1][None, :, None]
+    dx, dy = x - rx, y - ry
+    return (rx + torch.clamp(dx, -radius, radius),
+            ry + torch.clamp(dy, -radius, radius),
+            dx.abs() <= radius, dy.abs() <= radius)
+
+
+def _corners(value_l, x, y, H: int, W: int):
+    """The bilinear tap of every sample: (fx, fy, (valid, rows, gathered)),
+    the fractions past the top-left corner [BM, Q, P], and for the corners
+    (0, 0), (0, 1), (1, 0), (1, 1) as (dy, dx) whether each lies on the
+    image [BM, Q, P], its row in ``value_l`` [BM, Q * P] (clamped where it
+    does not) and that row [BM, Q * P, D]."""
+    BM, Q, P = x.shape
+    D = value_l.shape[-1]
+    x0, y0 = torch.floor(x), torch.floor(y)
+    x0i, y0i = x0.long(), y0.long()
+    valid, rows, gathered = [], [], []
+    for dy, dx in ((0, 0), (0, 1), (1, 0), (1, 1)):
+        yi, xi = y0i + dy, x0i + dx
+        valid.append((yi >= 0) & (yi < H) & (xi >= 0) & (xi < W))
+        rows.append((yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1))
+                    .reshape(BM, Q * P))
+        gathered.append(torch.gather(value_l, 1,
+                                     rows[-1][..., None].expand(-1, -1, D)))
+    return x - x0, y - y0, (valid, rows, gathered)
+
+
+def _corner_weights(fx, fy):
+    """The (y, x) factors of the four corners' bilinear weights, in
+    ``_corners``' order."""
+    gx, gy = 1 - fx, 1 - fy
+    return (gy, gx), (gy, fx), (fy, gx), (fy, fx)
+
+
 def ms_deform_attn_ref(value: torch.Tensor, spatial_shapes,
                        level_start, loc: torch.Tensor, attn: torch.Tensor,
                        radius: Optional[float] = None,
@@ -134,29 +179,12 @@ def ms_deform_attn_ref(value: torch.Tensor, spatial_shapes,
     out = torch.zeros(B * M, Q, D, dtype=torch.float32, device=value.device)
     for lid, (start, (H, W)) in enumerate(zip(level_starts(shapes), shapes)):
         value_l = value_bm[:, start:start + H * W]
-        x = loc_bm[:, :, lid, :, 0] * W - 0.5  # [BM, Q, P]
-        y = loc_bm[:, :, lid, :, 1] * H - 0.5
-        if radius is not None:
-            rx = ref[:, lid, 0][None, :, None]
-            ry = ref[:, lid, 1][None, :, None]
-            x = rx + torch.clamp(x - rx, -radius, radius)
-            y = ry + torch.clamp(y - ry, -radius, radius)
-        x0 = torch.floor(x)
-        y0 = torch.floor(y)
-        fx = x - x0
-        fy = y - y0
-        x0i = x0.long()
-        y0i = y0.long()
+        x, y = _level_coords(loc_bm, lid, H, W, radius, ref)[:2]
+        fx, fy, corners = _corners(value_l, x, y, H, W)
         sampled = torch.zeros(B * M, Q * P, D, dtype=torch.float32,
                               device=value.device)
-        for dy, dx, wgt in ((0, 0, (1 - fy) * (1 - fx)), (0, 1, (1 - fy) * fx),
-                            (1, 0, fy * (1 - fx)), (1, 1, fy * fx)):
-            yi = y0i + dy
-            xi = x0i + dx
-            valid = (yi >= 0) & (yi < H) & (xi >= 0) & (xi < W)
-            idx = (yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)).reshape(B * M, Q * P)
-            g = torch.gather(value_l, 1, idx[..., None].expand(-1, -1, D))
-            w = (wgt * valid).reshape(B * M, Q * P, 1)
+        for (wy, wx), valid, _, g in zip(_corner_weights(fx, fy), *corners):
+            w = (wy * wx * valid).reshape(B * M, Q * P, 1)
             sampled = sampled + g * w
         sampled = sampled.reshape(B * M, Q, P, D)
         out = out + torch.einsum("bqpd,bqp->bqd", sampled, attn_bm[:, :, lid])
@@ -188,6 +216,82 @@ def ms_deform_attn_limit(want: torch.Tensor, magnitude: torch.Tensor,
     return rtol * want.float().abs() + 1e-5 * magnitude.float()
 
 
+def ms_deform_attn_bwd_magnitude(value, spatial_shapes, level_start, loc,
+                                 attn, grad_out,
+                                 radius: Optional[float] = None,
+                                 ref: Optional[torch.Tensor] = None):
+    """Per element of (d value, d loc, d attn), the sum of the absolute
+    values of its terms in f32, and each gradient's most terms an element
+    sums: ((m_value, m_loc, m_attn), (n_value, n_loc, n_attn)).
+      d value: the twin's d value with |g| and |attn| (its terms g a w have
+        w >= 0); n_value the most samples' corners that reach one element.
+      d attn: sum_d |g_d| sample_d(|value|).
+      d loc_x: W |a| sum_d |g_d| (gy (|v00| + |v01|) + fy (|v10| + |v11|)),
+        d loc_y likewise with H, gx, fx and the corners' other pairs; zero on
+        an axis whose offset the clamp clipped, where both sides are 0.
+    d loc and d attn sum 4 D channel terms."""
+    shapes = as_shapes(spatial_shapes)
+    B, S, M, D = value.shape
+    Q, L, P = loc.shape[1], loc.shape[3], loc.shape[4]
+    g_abs = grad_out.float().abs()
+    m_value = ms_deform_attn_bwd_ref(value.float(), shapes, level_start, loc,
+                                     attn.float().abs(), g_abs, radius=radius,
+                                     ref=ref)[0]
+    if radius is not None:
+        ref = _ref_tensor(ref, shapes, Q, value.device)
+    value_bm = value.float().abs().permute(0, 2, 1, 3).reshape(B * M, S, D)
+    loc_bm = loc.float().permute(0, 2, 1, 3, 4, 5).reshape(B * M, Q, L, P, 2)
+    attn_bm = attn.float().abs().permute(0, 2, 1, 3, 4).reshape(B * M, Q, L, P)
+    g_bm = g_abs.reshape(B, Q, M, D).permute(0, 2, 1, 3).reshape(B * M, Q, 1, D)
+    m_loc = torch.zeros(B * M, Q, L, P, 2, device=value.device)
+    m_attn = torch.zeros(B * M, Q, L, P, device=value.device)
+    hits = torch.zeros(B * M, S, dtype=torch.long, device=value.device)
+    for lid, (start, (H, W)) in enumerate(zip(level_starts(shapes), shapes)):
+        x, y, pass_x, pass_y = _level_coords(loc_bm, lid, H, W, radius, ref)
+        fx, fy, (valid, rows, gathered) = _corners(
+            value_bm[:, start:start + H * W], x, y, H, W)
+        # sum_d |g_d| |v_corner, d| per sample and corner, [BM, Q, P]
+        gv = [(g.reshape(B * M, Q, P, D) * g_bm).sum(-1) * ok
+              for ok, g in zip(valid, gathered)]
+        m_attn[:, :, lid] = sum(wy * wx * t for (wy, wx), t
+                                in zip(_corner_weights(fx, fy), gv))
+        a = attn_bm[:, :, lid]
+        mx = W * a * ((1 - fy) * (gv[0] + gv[1]) + fy * (gv[2] + gv[3]))
+        my = H * a * ((1 - fx) * (gv[0] + gv[2]) + fx * (gv[1] + gv[3]))
+        if radius is not None:
+            mx, my = mx * pass_x, my * pass_y
+        m_loc[:, :, lid, :, 0], m_loc[:, :, lid, :, 1] = mx, my
+        for ok, row in zip(valid, rows):
+            hits.scatter_add_(1, start + row, ok.reshape(B * M, Q * P).long())
+    m_loc = m_loc.reshape(B, M, Q, L, P, 2).permute(0, 2, 1, 3, 4, 5)
+    m_attn = m_attn.reshape(B, M, Q, L, P).permute(0, 2, 1, 3, 4)
+    return ((m_value.float(), m_loc.contiguous(), m_attn.contiguous()),
+            (int(hits.max().item()) if hits.numel() else 0, 4 * D, 4 * D))
+
+
+def ms_deform_attn_bwd_limit(want, magnitude, dtype: torch.dtype):
+    """Per element of K2's (d value, d loc, d attn), the most it may differ
+    from the twin's ``want``: rtol |want| + c M, with M and the term counts
+    n from ``ms_deform_attn_bwd_magnitude``.
+      rtol: 2^-7, one bf16 step, for d value and d attn in bf16 (both sides
+        sum in f32 and round to bf16 once); 1e-5 for d loc (f32) and in f32.
+      c = max(1e-5, 2 (n + 2) 2^-24): each side's f32 sum of n terms in its
+        own order is off by at most (n - 1) u M, u = 2^-24, and each term's
+        two or three products by 3 u of it; the two sides' errors add. d
+        value sums through atomics in an order that changes from run to
+        run; its n is the most samples' corners reaching one element
+        (hundreds at the 1024^2 encoder shapes), d loc's and d attn's 4 D.
+    """
+    (m_value, m_loc, m_attn), terms = magnitude
+    limits = []
+    for w, m, n, rounded in zip(want, (m_value, m_loc, m_attn), terms,
+                                (True, False, True)):
+        rtol = 2.0 ** -7 if rounded and dtype == torch.bfloat16 else 1e-5
+        c = max(1e-5, 2 * (n + 2) * 2.0 ** -24)
+        limits.append(rtol * w.float().abs() + c * m.float())
+    return tuple(limits)
+
+
 def _check_inputs(value, loc, attn, ref, shapes: Shapes) -> None:
     if value.device.type != "cuda":
         raise ValueError(f"ms_deform_attn kernel: value is on {value.device}")
@@ -197,6 +301,11 @@ def _check_inputs(value, loc, attn, ref, shapes: Shapes) -> None:
     if value.dim() != 4:
         raise ValueError(f"value must be [B, S, M, D], got {tuple(value.shape)}")
     B, S, M, D = value.shape
+    vec = 16 // value.element_size()  # channels in a 16-byte vector
+    if D > 32 and (D % vec or D > 32 * vec):
+        raise ValueError(f"D={D}: the kernels take a head of at most 32 "
+                         f"threads ({32 * vec} channels in 16-byte vectors, "
+                         f"32 single)")
     if not 1 <= len(shapes) <= MAX_LEVELS:
         raise ValueError(f"1..{MAX_LEVELS} levels, got {len(shapes)}")
     if S != sum(h * w for h, w in shapes):
@@ -250,8 +359,9 @@ def _shapes_c(shapes: Shapes) -> ctypes.c_void_p:
 
 
 def _launch_bwd(lib, value, shapes: Shapes, loc, attn, grad_out, radius, ref):
-    """K2: (d value, d loc, d attn). d value is summed in a zeroed f32
-    buffer and rounded to value's type once."""
+    """K2: (d value, d loc, d attn). The kernel sums d value in an f32
+    accumulator, which it zeroes, and rounds it to value's type once (for
+    f32 the accumulator is d value)."""
     global BWD_LAUNCHES
     B, S, M, D = value.shape
     Q, L, P = loc.shape[1], loc.shape[3], loc.shape[4]
@@ -260,22 +370,23 @@ def _launch_bwd(lib, value, shapes: Shapes, loc, attn, grad_out, radius, ref):
         raise ValueError(f"grad_out must be contiguous {value.dtype} "
                          f"{(B, Q, M * D)} on {value.device}, got "
                          f"{grad_out.dtype} {tuple(grad_out.shape)}")
-    grad_value = torch.zeros(B, S, M, D, dtype=torch.float32,
-                             device=value.device)
+    grad_value = torch.empty_like(value)
+    acc = grad_value if value.dtype == torch.float32 else torch.empty(
+        B, S, M, D, dtype=torch.float32, device=value.device)
     grad_loc = torch.empty_like(loc)
     grad_attn = torch.empty_like(attn)
     with torch.cuda.device(value.device):
         rc = lib.psalm_msdeform_bwd(
             value.data_ptr(), loc.data_ptr(), attn.data_ptr(),
             ref.data_ptr() if radius is not None else None,
-            grad_out.data_ptr(), grad_value.data_ptr(), grad_loc.data_ptr(),
-            grad_attn.data_ptr(), _build.DTYPE_CODES[value.dtype], B, S, Q, M,
-            D, L, P, _shapes_c(shapes),
-            float(radius) if radius is not None else 0.0,
+            grad_out.data_ptr(), grad_value.data_ptr(), acc.data_ptr(),
+            grad_loc.data_ptr(), grad_attn.data_ptr(),
+            _build.DTYPE_CODES[value.dtype], B, S, Q, M, D, L, P,
+            _shapes_c(shapes), float(radius) if radius is not None else 0.0,
             int(radius is not None), _build.stream_ptr(value.device))
     _build.check(lib, rc, "psalm_msdeform_bwd")
     BWD_LAUNCHES += 1
-    return grad_value.to(value.dtype), grad_loc, grad_attn
+    return grad_value, grad_loc, grad_attn
 
 
 def _prepare(value, spatial_shapes, level_start, loc, attn, radius, ref):

@@ -1,6 +1,7 @@
-"""The per-element limits that K1 and K3 are held to on the card
-(``ms_deform_attn_limit``, ``window_attention_limit``), held against
-plain-torch emulations of the kernels' arithmetic on the CPU.
+"""The per-element limits that K1, K2 and K3 are held to on the card
+(``ms_deform_attn_limit``, ``ms_deform_attn_bwd_limit``,
+``window_attention_limit``), held against plain-torch emulations of the
+kernels' arithmetic on the CPU.
 
 The bf16 tensor-core K3 (``csrc/swin_attention.cu``) rounds q * scale and
 P to bf16 where the twin does, sums S and P v in f32 in another order, and
@@ -8,11 +9,18 @@ rounds the output once; its limit allows one bf16 step of the output plus
 2^-8 of P |v| (``window_attention_magnitude``). K1 (``csrc/msdeform.cu``)
 sums the same f32 terms in another order and rounds once; its limit allows
 one bf16 step (bf16) or 1e-5 of the output, plus 1e-5 of the sum of the
-absolute terms (``ms_deform_attn_magnitude``). Here: the emulations lie
-within the limits, and emulations of broken kernels (K3 without the scale
-or without the bias, K1 with its bilinear fractions swapped) fail them by
-more than 10x, as the mutants of ``tools/kernel_mutants.py`` must on the
-card.
+absolute terms (``ms_deform_attn_magnitude``). K2 (``csrc/msdeform_bwd.cu``)
+sums each sample's d attn and d loc over a thread's channels, then over
+the head's threads by a shuffle tree, and d value through atomics in an
+order that changes from run to run; its limit allows one bf16 step of d
+value and d attn in bf16 (1e-5 of the output else), plus c of the sum of
+the absolute terms, c from the number of terms
+(``ms_deform_attn_bwd_magnitude``). Here: the emulations lie within the
+limits, and emulations of broken kernels (K3 without the scale or without
+the bias, K1 with its bilinear fractions swapped, K2 with d loc_x on fx's
+stencil or d value scattered with two corners' weights swapped) fail them
+by more than 10x, as the mutants of ``tools/kernel_mutants.py`` must on
+the card.
 """
 
 import math
@@ -121,11 +129,11 @@ def test_k3_f32_limit_and_magnitude_definitions():
         atol=1e-6)
 
 
-def _deform_inputs(seed=0):
+def _deform_inputs(seed=0, D=8):
     """Pallas3's level shapes with offsets to 12 px, beyond radius 8 and
     off the border."""
     shapes = ((16, 16), (8, 8), (4, 4))
-    B, M, D, P, L = 2, 2, 8, 2, 3
+    B, M, P, L = 2, 2, 2, 3
     S = sum(h * w for h, w in shapes)
     rng = np.random.default_rng(seed)
     ref = msdeform.reference_grid(shapes)  # [S, L, 2] target-level pixels
@@ -209,3 +217,175 @@ def test_k1_magnitude_sums_absolute_terms():
     limit = msdeform.ms_deform_attn_limit(want, mag, torch.float32)
     torch.testing.assert_close(limit, 1e-5 * want.abs() + 1e-5 * mag)
     assert not math.isnan(limit.sum().item())
+
+
+def emulate_k2(value, shapes, loc, attn, grad, radius=None, mutant=None,
+               seed=0):
+    """K2's arithmetic: per sample, each thread's partial sums of d attn,
+    d loc_x and d loc_y over its channel group (one 16-byte vector: 8
+    channels in bf16, 4 in f32), then an xor shuffle tree over the head's
+    threads (4-way at D = 32 in bf16); d loc = a s W, gated by the clamp;
+    d attn rounded to value's type; d value's terms g a w summed in f32 in
+    a shuffled order and rounded once. ``mutant``: "loc_x_fx" takes d loc_x
+    on fx's stencil, "swap_w01_w10" scatters d value with the (0, 1) and
+    (1, 0) corners' weights swapped."""
+    B, S, M, D = value.shape
+    Q, L, P = loc.shape[1], loc.shape[3], loc.shape[4]
+    group = 16 // value.element_size()
+    T = D // group  # threads a head
+    vf, af = value.float(), attn.float()
+    g = grad.float().reshape(B, Q, M, D)
+    ref = msdeform._ref_tensor(None, shapes, Q, "cpu") if radius else None
+    d_loc = torch.zeros(B, Q, M, L, P, 2)
+    d_attn = torch.zeros(B, Q, M, L, P)
+    rows, terms = [], []
+    head = torch.arange(B)[:, None, None] * S * M + torch.arange(M)
+    start = 0
+    for lv, (H, W) in enumerate(shapes):
+        value_l = vf[:, start:start + H * W].reshape(B, H * W * M, D)
+        for p in range(P):
+            x = loc[:, :, :, lv, p, 0] * W - 0.5  # [B, Q, M]
+            y = loc[:, :, :, lv, p, 1] * H - 0.5
+            pass_x = pass_y = torch.ones(B, Q, M, dtype=torch.bool)
+            if radius:
+                rx, ry = ref[None, :, None, lv, 0], ref[None, :, None, lv, 1]
+                pass_x = (x - rx).abs() <= radius
+                pass_y = (y - ry).abs() <= radius
+                x = rx + torch.clamp(x - rx, -radius, radius)
+                y = ry + torch.clamp(y - ry, -radius, radius)
+            x0, y0 = torch.floor(x), torch.floor(y)
+            fx, fy = x - x0, y - y0
+            gx, gy = 1 - fx, 1 - fy
+            v, ok, pix = [], [], []
+            for dy, dx in ((0, 0), (0, 1), (1, 0), (1, 1)):
+                xi, yi = (x0 + dx).long(), (y0 + dy).long()
+                inside = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
+                at = yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)
+                row = (at * M + torch.arange(M)).reshape(B, Q * M, 1)
+                got = torch.gather(value_l, 1, row.expand(-1, -1, D))
+                v.append(got.reshape(B, Q, M, D) * inside[..., None])
+                ok.append(inside)
+                pix.append(start + at)
+            w = [gy * gx, gy * fx, fy * gx, fy * fx]
+            e = lambda t: t[..., None]  # noqa: E731
+            sx, tx = (gx, fx) if mutant == "loc_x_fx" else (gy, fy)
+            per_channel = (
+                g * (e(w[0]) * v[0] + e(w[1]) * v[1] + e(w[2]) * v[2]
+                     + e(w[3]) * v[3]),
+                g * (e(sx) * (v[1] - v[0]) + e(tx) * (v[3] - v[2])),
+                g * (e(gx) * (v[2] - v[0]) + e(fx) * (v[3] - v[1])))
+            sums = []
+            for t in per_channel:
+                t = t.reshape(B, Q, M, T, group)
+                part = torch.zeros(B, Q, M, T)
+                for c in range(group):  # a thread's channels, in order
+                    part = part + t[..., c]
+                off = T // 2
+                while off:  # __shfl_xor_sync over the head's threads
+                    part = part + part[..., torch.arange(T) ^ off]
+                    off //= 2
+                sums.append(part[..., 0])
+            a = af[:, :, :, lv, p]
+            d_attn[:, :, :, lv, p] = sums[0]
+            d_loc[:, :, :, lv, p, 0] = torch.where(pass_x, a * sums[1] * W, 0.0)
+            d_loc[:, :, :, lv, p, 1] = torch.where(pass_y, a * sums[2] * H, 0.0)
+            ga = g * e(a)
+            if mutant == "swap_w01_w10":
+                w[1], w[2] = w[2], w[1]
+            for c in range(4):
+                keep = ok[c].reshape(-1)
+                rows.append((head + pix[c] * M).reshape(-1)[keep])
+                terms.append((ga * e(w[c])).reshape(-1, D)[keep])
+        start += H * W
+    rows, terms = torch.cat(rows), torch.cat(terms)
+    order = torch.from_numpy(np.random.default_rng(seed).permutation(len(rows)))
+    d_value = torch.zeros(B * S * M, D).index_add_(0, rows[order], terms[order])
+    return (d_value.reshape(B, S, M, D).to(value.dtype), d_loc,
+            d_attn.to(value.dtype))
+
+
+def _k2_case(dtype, radius, seed=0):
+    """_deform_inputs at the model's head width (D = 32) in ``dtype``, with
+    a seeded output gradient."""
+    value, shapes, loc, attn = _deform_inputs(seed, D=32)
+    rng = np.random.default_rng(seed + 1)
+    grad = torch.from_numpy(rng.standard_normal(
+        (value.shape[0], loc.shape[1], value.shape[2] * value.shape[3]))
+        .astype(np.float32))
+    return (value.float().to(dtype), shapes, loc, attn.float().to(dtype),
+            grad.to(dtype), radius)
+
+
+def _k2_worst(value, shapes, loc, attn, grad, radius, got):
+    """The worst element's share of ``ms_deform_attn_bwd_limit`` in each
+    of d value, d loc and d attn."""
+    starts = msdeform.level_starts(shapes)
+    args = (value, shapes, starts, loc, attn, grad)
+    want = msdeform.ms_deform_attn_bwd_ref(*args, radius=radius)
+    mag = msdeform.ms_deform_attn_bwd_magnitude(*args, radius=radius)
+    limits = msdeform.ms_deform_attn_bwd_limit(want, mag, value.dtype)
+    worst = []
+    for a, b, lim in zip(got, want, limits):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        diff = (a.float() - b.float()).abs()
+        worst.append((diff / lim).masked_fill(diff == 0, 0.0).max().item())
+    return worst
+
+
+K2_CASES = [(dt, r) for dt in (torch.bfloat16, torch.float32)
+            for r in (None, 8.0)]
+
+
+@pytest.mark.parametrize("dtype,radius", K2_CASES)
+def test_emulated_k2_lies_within_the_limit(dtype, radius):
+    case = _k2_case(dtype, radius)
+    got = emulate_k2(*case, seed=3)
+    assert max(_k2_worst(*case, got)) <= 1.0
+
+
+@pytest.mark.parametrize("dtype,radius", K2_CASES)
+def test_k2_with_loc_x_on_fx_stencil_fails_the_limit(dtype, radius):
+    case = _k2_case(dtype, radius)
+    worst = _k2_worst(*case, emulate_k2(*case, mutant="loc_x_fx"))
+    assert worst[1] > 10.0
+
+
+@pytest.mark.parametrize("dtype,radius", K2_CASES)
+def test_k2_with_w01_w10_swapped_fails_the_limit(dtype, radius):
+    case = _k2_case(dtype, radius)
+    worst = _k2_worst(*case, emulate_k2(*case, mutant="swap_w01_w10"))
+    assert worst[0] > 10.0
+
+
+def test_k2_magnitudes_sum_absolute_terms():
+    """Each magnitude is at least |want|; d value's and d attn's equal it
+    where every term is positive (g, attn and value >= 0), and d loc_x's
+    where the corners (0, 0) and (1, 0), which enter it negated, are 0."""
+    value, shapes, loc, attn, grad, _ = _k2_case(torch.float32, None, seed=2)
+    starts = msdeform.level_starts(shapes)
+    for r in (None, 8.0):
+        args = (value, shapes, starts, loc, attn, grad)
+        want = msdeform.ms_deform_attn_bwd_ref(*args, radius=r)
+        (mags, terms) = msdeform.ms_deform_attn_bwd_magnitude(*args, radius=r)
+        assert terms[1:] == (4 * 32, 4 * 32) and terms[0] > 12
+        for m, w in zip(mags, want):
+            assert m.dtype == torch.float32
+            assert (m >= w.abs() * (1 - 1e-6)).all()
+        pos = (value.abs(), shapes, starts, loc, attn, grad.abs())
+        want = msdeform.ms_deform_attn_bwd_ref(*pos, radius=r)
+        mags = msdeform.ms_deform_attn_bwd_magnitude(*pos, radius=r)[0]
+        torch.testing.assert_close(mags[0], want[0])
+        torch.testing.assert_close(mags[2], want[2])
+    # one sample at (x, y) = (1.25, 2.5) of a 4 x 4 level: d loc_x =
+    # W a sum_d g_d (gy (v01 - v00) + fy (v11 - v10)) with v00 = v10 = 0
+    shapes = ((4, 4),)
+    value = torch.ones(1, 16, 1, 8)
+    value[0, [2 * 4 + 1, 3 * 4 + 1]] = 0.0
+    loc = torch.tensor([(1.25 + 0.5) / 4, (2.5 + 0.5) / 4]).reshape(
+        1, 1, 1, 1, 1, 2)
+    attn, grad = torch.full((1, 1, 1, 1, 1), 0.7), torch.rand(1, 1, 8)
+    args = (value, shapes, (0,), loc, attn, grad)
+    want = msdeform.ms_deform_attn_bwd_ref(*args)[1]
+    mag = msdeform.ms_deform_attn_bwd_magnitude(*args)[0][1]
+    torch.testing.assert_close(mag[..., 0], want[..., 0])
+    assert (mag[..., 1] > want[..., 1].abs()).all()

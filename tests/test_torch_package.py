@@ -397,20 +397,15 @@ def test_forwards_keep_what_their_backward_needs_only_under_grad():
     assert out.grad_fn is None
 
 
-def _abs_rel_worst(got, want, rtol, atol_rel):
-    """Worst |got - want| / (rtol |want| + atol_rel max |want|)."""
-    got, want = got.float(), want.float()
-    limit = rtol * want.abs() + atol_rel * want.abs().max() + 1e-30
-    return ((got - want).abs() / limit).max().item()
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k2_matches_its_plain_twin_on_the_card(dtype):
     """K2 against autograd through ms_deform_attn_ref on the same inputs
-    upcast to f32, exact and clamped: each element within rtol |want| +
-    1e-5 max |want|, rtol 2^-7 for the bf16 outputs (d value and d attn
-    are rounded once to bf16), 1e-5 otherwise (the atomics' f32 order)."""
+    upcast to f32, exact and clamped: every element of d value, d loc and
+    d attn within ``ms_deform_attn_bwd_limit`` (rtol |want| + c M, M the
+    sum of its terms' absolute values and c from their number; rtol 2^-7
+    for the bf16 outputs d value and d attn, which are rounded once, 1e-5
+    otherwise)."""
     _require_card()
     n = msdeform.BWD_LAUNCHES
     for radius in (None, 1.5):
@@ -419,15 +414,54 @@ def test_k2_matches_its_plain_twin_on_the_card(dtype):
                         device="cuda").to(dtype)
         got = msdeform.ms_deform_attn_bwd(value, shapes, starts, loc, attn, g,
                                           radius=radius)
-        want = msdeform.ms_deform_attn_bwd_ref(
-            value.float(), shapes, starts, loc, attn.float(), g.float(),
-            radius=radius)
-        for name, a, b in zip(("value", "loc", "attn"), got, want):
-            rtol = 2.0 ** -7 if (dtype == torch.bfloat16
-                                 and name != "loc") else 1e-5
+        args = (value.float(), shapes, starts, loc, attn.float(), g.float())
+        want = msdeform.ms_deform_attn_bwd_ref(*args, radius=radius)
+        mag = msdeform.ms_deform_attn_bwd_magnitude(*args, radius=radius)
+        limits = msdeform.ms_deform_attn_bwd_limit(want, mag, dtype)
+        for name, a, b, lim in zip(("value", "loc", "attn"), got, want,
+                                   limits):
             assert a.dtype == (torch.float32 if name == "loc" else dtype)
-            assert _abs_rel_worst(a, b, rtol, 1e-5) <= 1.0, (radius, name)
+            assert ((a.float() - b).abs() <= lim).all(), (radius, name)
     assert msdeform.BWD_LAUNCHES == n + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,L,P", [(32, 3, 4), (24, 3, 4), (6, 3, 4),
+                                   (6, 2, 3)])
+def test_sampler_kernels_take_every_layout_on_the_card(dtype, D, L, P):
+    """K1 and K2 in each of their thread layouts against their twins, exact
+    and clamped, within ``ms_deform_attn_limit`` and
+    ``ms_deform_attn_bwd_limit``: the model's L = 3, P = 4 and run-time L,
+    P; 16-byte channel vectors with a head's threads all busy (D = 32),
+    with idle threads (D = 24: 3 vectors in bf16, 6 in f32, on 4 and 8
+    threads), and single channels (D = 6, 12 or 24 bytes)."""
+    _require_card()
+    shapes = ((5, 7), (3, 4), (2, 2))[:L]
+    S, M = sum(h * w for h, w in shapes), 3
+    g = torch.Generator().manual_seed(D + L)
+    value = torch.randn(2, S, M, D, generator=g).to("cuda", dtype)
+    loc = (torch.rand(2, S, M, L, P, 2, generator=g) * 1.4 - 0.2).cuda()
+    attn = torch.rand(2, S, M, L, P, generator=g).to("cuda", dtype)
+    grad = torch.randn(2, S, M * D, generator=g).to("cuda", dtype)
+    starts = msdeform.level_starts(shapes)
+    for radius in (None, 1.5):
+        args = (value, shapes, starts, loc, attn)
+        got = msdeform.ms_deform_attn(*args, radius=radius)
+        plain = (value.float(), shapes, starts, loc, attn.float())
+        want = msdeform.ms_deform_attn_ref(*plain, radius=radius)
+        mag = msdeform.ms_deform_attn_magnitude(*plain, radius=radius)
+        limit = msdeform.ms_deform_attn_limit(want, mag, dtype)
+        assert ((got.float() - want).abs() <= limit).all(), radius
+        got = msdeform.ms_deform_attn_bwd(*args, grad, radius=radius)
+        want = msdeform.ms_deform_attn_bwd_ref(*plain, grad.float(),
+                                               radius=radius)
+        mag = msdeform.ms_deform_attn_bwd_magnitude(*plain, grad.float(),
+                                                    radius=radius)
+        limits = msdeform.ms_deform_attn_bwd_limit(want, mag, dtype)
+        for name, a, b, lim in zip(("value", "loc", "attn"), got, want,
+                                   limits):
+            assert ((a.float() - b).abs() <= lim).all(), (radius, name)
 
 
 @pytest.mark.gpu

@@ -1,15 +1,30 @@
 #!/usr/bin/env python3
-"""Where K3's and K4's time goes: each kernel timed beside copies of itself
-with one part taken out or changed, in turns, on one card.
+"""Where K1's, K2's, K3's and K4's time goes: each kernel timed beside
+copies of itself with one part taken out or changed, in turns, on one card.
 
-    python3 tools/kernel_variants.py      # from the root of a checkout; one card
+    python3 tools/kernel_variants.py [K1 K2 K3 K4]   # from the root of a
+                                                     # checkout; one card
 
 A variant is the kernel's source with a few lines replaced, built alone by
 nvcc into a temporary directory and called through its C entry point at
 the shapes chip_smoke.py checks, bf16. A variant with a part taken out
 computes a wrong result; only its time is read. Times are device ms from
 torch.profiler (chip_smoke.device_ms), in turns: the kernel as it is, each
-variant, the kernel again.
+variant, the kernel again. With no argument every kernel is timed.
+  K1 (phase 3's sampler inputs, bf16, exact and radius 8):
+    scalar_loads   each corner's 8 channels read by eight 2-byte loads in
+                   place of one 16-byte load
+  K2 (the same inputs with an output gradient, bf16, and f32 for the
+  first three; a call's time takes in the accumulator's zero fill and, in
+  bf16, the finish kernel):
+    scalar_atomics d value by scalar atomicAdd, four a vector reduction
+    no_scatter     the d value reductions taken out
+    split_sectors  (bf16) a thread's two vector reductions to its own
+                   channels 8c and 8c + 4 of the head's row in place of 4c
+                   and D/2 + 4c: each warp instruction then covers half of
+                   every 32-byte sector it touches
+    two_blocks     at most 128 registers, two blocks an SM
+    blocks_128     blocks of 128 threads in place of 256
   K4 (Phi's three shapes, B = 1 and 4):
     no_products  the unpack, the products and the scales replaced by a
                  cheap use of the loaded words: the loads and the launch
@@ -38,6 +53,7 @@ from psalm_tpu_torch.models.quant import quantize_kernel_int4  # noqa: E402
 from psalm_tpu_torch.models.swin import shift_attn_mask  # noqa: E402
 from psalm_tpu_torch.ops import _build  # noqa: E402
 from psalm_tpu_torch.ops import int4_matvec as k4  # noqa: E402
+from psalm_tpu_torch.ops import msdeform as k1  # noqa: E402
 
 K4_NO_PRODUCTS = [(
     """      float p[BS][kCols];
@@ -70,6 +86,40 @@ K4_VARIANTS = {
     "cluster_2": ([], 8, 2),
     "cluster_1": ([], 8, 1),
 }
+K1_VARIANTS = {
+    "as it is": [],
+    "scalar_loads": [("msdeform_common.cuh",
+                      "    return __ldg(reinterpret_cast<const uint4*>(p));",
+                      """    const unsigned short* h = reinterpret_cast<const unsigned short*>(p);
+    unsigned u[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) u[i] = __ldg(h + i);
+    return make_uint4(u[0] | u[1] << 16, u[2] | u[3] << 16, u[4] | u[5] << 16,
+                      u[6] | u[7] << 16);""")],
+}
+K2_VARIANTS = {
+    "as it is": [],
+    "scalar_atomics": [("""      asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};"
+                   :: "l"(__cvta_generic_to_global(p + i / 4 * stride)),
+                      "f"(v[i]), "f"(v[i + 1]), "f"(v[i + 2]), "f"(v[i + 3])
+                   : "memory");""",
+                        """      for (int j = 0; j < 4; ++j)
+        atomicAdd(p + i / 4 * stride + j, v[i + j]);""")],
+    "no_scatter": [("      reduce_add<kV>(gv + c.pix[k] * MD, stride, d);",
+                    "      (void)d;")],
+    "split_sectors": [("const int acc_off = kV == 8 ? 4 * lane_in_head : d0, "
+                       "acc_stride = D / 2;",
+                       "const int acc_off = d0, acc_stride = 4;")],
+    "two_blocks": [("__launch_bounds__(256) msdeform_bwd_kernel",
+                    "__launch_bounds__(256, 2) msdeform_bwd_kernel")],
+    "blocks_128": [("  constexpr int kThreads = 256;",
+                    "  constexpr int kThreads = 128;")],
+}
+K2_F32 = ("as it is", "scalar_atomics", "no_scatter")
+ENTRIES = {"msdeform.cu": "psalm_msdeform_fwd",
+           "msdeform_bwd.cu": "psalm_msdeform_bwd",
+           "int4_matvec.cu": "psalm_int4_matvec",
+           "swin_attention.cu": "psalm_window_attention_fwd"}
 K3_VARIANTS = {
     "as it is": [],
     "one_block": [("__launch_bounds__(16 * NB, NB <= 18 ? 2 : 1)",
@@ -83,32 +133,33 @@ K3_VARIANTS = {
 
 
 def build(work, source, variants):
-    """{name: loaded library} of each variant of csrc/``source``."""
+    """{name: loaded library} of each variant of csrc/``source``. An edit
+    is (old, new) in the source, or (header, old, new) in a header."""
     csrc = _build.CSRC_DIR
-    for header in csrc.glob("*.cuh"):
-        shutil.copy(header, work)
-    text = (csrc / source).read_text()
     nvcc = _build.find_nvcc()
     cmds, paths = [], {}
     for name, edits in variants.items():
-        variant = text
-        for old, new in edits:
-            if variant.count(old) != 1:
-                sys.exit(f"{source} {name}: the text to replace is not there "
+        vdir = os.path.join(work, f"{source[:-3]}_{name.replace(' ', '_')}")
+        os.makedirs(vdir)
+        files = {p.name: p.read_text() for p in csrc.glob("*.cuh")}
+        files[source] = (csrc / source).read_text()
+        for edit in edits:
+            where, old, new = edit if len(edit) == 3 else (source, *edit)
+            if files[where].count(old) != 1:
+                sys.exit(f"{where} {name}: the text to replace is not there "
                          "once")
-            variant = variant.replace(old, new)
-        stem = os.path.join(work, f"{source[:-3]}_{name.replace(' ', '_')}")
-        with open(stem + ".cu", "w") as f:
-            f.write(variant)
-        paths[name] = stem + ".so"
-        cmds.append(_build.nvcc_command(nvcc, [stem + ".cu"], stem + ".so"))
+            files[where] = files[where].replace(old, new)
+        for fname, text in files.items():
+            with open(os.path.join(vdir, fname), "w") as f:
+                f.write(text)
+        paths[name] = os.path.join(vdir, "lib.so")
+        cmds.append(_build.nvcc_command(nvcc, [os.path.join(vdir, source)],
+                                        paths[name]))
     _build._run_together(cmds)
     libs = {}
     for name, path in paths.items():
         lib = ctypes.CDLL(path)
-        entry = ("psalm_int4_matvec" if source == "int4_matvec.cu"
-                 else "psalm_window_attention_fwd")
-        getattr(lib, entry).argtypes = _build.SIGNATURES[entry]
+        getattr(lib, ENTRIES[source]).argtypes = _build.SIGNATURES[ENTRIES[source]]
         libs[name] = lib
     return libs
 
@@ -179,18 +230,71 @@ def time_k3(libs):
                       f" {name}: {ms:.5f} ms", flush=True)
 
 
+def deform_call(lib, name, dtype, radius, backward):
+    """A call of K1 (or K2) from ``lib`` on phase 3's inputs in ``dtype``."""
+    shapes, loc, value32, attn32, g = smoke.deform_inputs(torch, 2, True)
+    B, S, M, D = value32.shape
+    Q, L, P = loc.shape[1], loc.shape[3], loc.shape[4]
+    value, attn = value32.to(dtype), attn32.to(dtype)
+    grad = torch.randn(B, S, M * D, generator=g, device="cuda").to(dtype)
+    ref = k1.reference_grid(shapes)
+    ref = torch.from_numpy(ref).cuda()
+    shapes_c = k1._shapes_c(shapes)
+    common = (_build.DTYPE_CODES[dtype], B, S, Q, M, D, L, P, shapes_c,
+              float(radius or 0.0), int(radius is not None),
+              _build.stream_ptr(value.device))
+    if backward:
+        grad_value = torch.empty_like(value)
+        acc = torch.empty(B, S, M, D, device="cuda")
+        grad_loc, grad_attn = torch.empty_like(loc), torch.empty_like(attn)
+        ptrs = (value, loc, attn, ref, grad, grad_value, acc, grad_loc,
+                grad_attn)
+        entry = lib.psalm_msdeform_bwd
+    else:
+        out = torch.empty(B, Q, M * D, dtype=dtype, device="cuda")
+        ptrs = (value, loc, attn, ref, out)
+        entry = lib.psalm_msdeform_fwd
+
+    def call():
+        rc = entry(*(t.data_ptr() for t in ptrs), *common)
+        if rc:
+            sys.exit(f"{'K2' if backward else 'K1'} {name}: CUDA error {rc}")
+
+    return call
+
+
+def time_deform(libs, kernel, cases):
+    """K1 or K2 in each (dtype, radius, variants) case, in turns."""
+    for dtype, radius, names in cases:
+        for name in in_turns(list(names)):
+            call = deform_call(libs[name], name, dtype, radius, kernel == "K2")
+            ms = smoke.device_ms(call, iters=50)
+            print(f"{kernel} {smoke.dtype_name(dtype)} radius={radius} {name}: "
+                  f"{ms:.5f} ms", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
+    which = sys.argv[1:] or ["K1", "K2", "K3", "K4"]
     print(torch.cuda.get_device_name(0), flush=True)
     work = tempfile.mkdtemp(prefix="kernel_variants_")
     try:
-        k4_libs = build(work, "int4_matvec.cu",
-                        {n: e for n, (e, _, _) in K4_VARIANTS.items()
-                         if not n.startswith("cluster")})
-        k3_libs = build(work, "swin_attention.cu", K3_VARIANTS)
-        time_k4(k4_libs)
-        time_k3(k3_libs)
+        if "K1" in which:
+            libs = build(work, "msdeform.cu", K1_VARIANTS)
+            time_deform(libs, "K1", [(torch.bfloat16, r, K1_VARIANTS)
+                                     for r in (None, 8.0)])
+        if "K2" in which:
+            libs = build(work, "msdeform_bwd.cu", K2_VARIANTS)
+            time_deform(libs, "K2", [(torch.bfloat16, None, K2_VARIANTS),
+                                     (torch.float32, None, K2_F32)])
+        if "K4" in which:
+            k4_libs = build(work, "int4_matvec.cu",
+                            {n: e for n, (e, _, _) in K4_VARIANTS.items()
+                             if not n.startswith("cluster")})
+            time_k4(k4_libs)
+        if "K3" in which:
+            time_k3(build(work, "swin_attention.cu", K3_VARIANTS))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
