@@ -116,6 +116,29 @@ Phases, each of which must pass:
  11. train dense - the same with attention_mode="dense" (2 heads of 128):
                12 non-causal K5 forwards and 6 backwards per step, no K1 or
                K2.
+ 12. clis    - the seven eval CLIs (psalm_tpu_torch/eval/*: panoptic,
+               semantic, instance, referring, region, gRefCOCO, Cityscapes
+               instance) through evaluation(...), on a COCO-format tree
+               written from a seed under build/clis: 4 JPEG images of
+               480x640, panoptic PNGs of 12 segments an image over COCO's
+               133 categories (80 thing, 53 stuff) with their JSON, an
+               instance / referring / region JSON with 8 RLE annotations,
+               a 12-word sentence and point prompts an image, and a
+               150-name semantic list with label PNGs. First the panoptic
+               and instance CLIs at the tiny config in f32 (Phi use_flash,
+               2 heads of 32), kernels on the card against the plain
+               versions on the CPU: panoptic PNGs agree on 99% of pixels,
+               ranked instance records item by item as in phase 4. Then
+               one PSALMConfig() model in bf16 with use_flash (random
+               weights from a seeded torch.Generator) shared by every CLI,
+               each after one warm-up image: the counters, zeroed before
+               the timed run, must show 6 K1, 24 K3 and 24 K5 (causal)
+               launches per image; every metric finite and within [0, 100];
+               the artifacts read back (panoptic PNGs + predictions.json
+               with the panoptic_official_gt score, instance RLE records,
+               the semantic RLE records, the pkl and txt summaries); img/s,
+               and the panoptic CLI's ms an image beside EvalRunner.infer's
+               p50 on its first image and phase 5's p50.
 
 Each path zeroes the launch counters just before its timed run and reads
 them just after. f32 comparisons run with TF32 off. On the line before the
@@ -611,7 +634,6 @@ def k5_limit(flash_attention, q, k, v, want, **kw):
 
 
 def check_k5(torch, flash_attention, records):
-    import torch.nn.functional as F
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(5)
     cases = [(32, 640, 64, True, torch.bfloat16),   # Phi, eval batch
@@ -623,30 +645,38 @@ def check_k5(torch, flash_attention, records):
     for h, L, hd, causal, dtype in cases:
         q, k, v = (torch.randn(1, h, L, hd, generator=g, device=dev).to(dtype)
                    for _ in range(3))
-        kw = dict(causal=causal, sm_scale=hd ** -0.5)
-        got = flash_attention.flash_attention(q, k, v, **kw).float()
-        want = flash_attention.flash_attention_ref(q, k, v, **kw).float()
-        kernel = "K5 causal" if causal else "K5 non-causal"
-        name = (f"{kernel} flash_attention {dtype_name(dtype)} B=1 h={h} "
-                f"L={L} hd={hd}")
-        limit, formula = k5_limit(flash_attention, q, k, v, want, **kw)
-        diff = (got - want).abs()
-        worst = (diff / limit).max().item()
-        log(f"  {name}: |out| max {want.abs().max().item():.4e}, rms "
-            f"{want.square().mean().sqrt().item():.4e}; largest |got - want| "
-            f"is {worst:.4f} of its limit {formula}")
-        if not worst <= 1.0:
-            fail(f"{name}: |got - want| exceeds {formula} by {worst}x")
-        nbytes = 4 * q.numel() * q.element_size()  # q, k, v read, out written
-        flops = 4 * h * L * L * hd // (2 if causal else 1)
-        record(records, kernel, name, diff.max().item(), limit.max().item(),
-               lambda: flash_attention.flash_attention(q, k, v, **kw),
-               lambda: flash_attention.flash_attention_ref(q, k, v, **kw),
-               lambda: F.scaled_dot_product_attention(
-                   q, k, v, is_causal=causal, scale=hd ** -0.5),
-               bound(nbytes, flops, dtype_name(dtype)))
-        records[-1]["limit"] = formula
-        records[-1]["worst_of_limit"] = worst
+        hold_k5(flash_attention, records, q, k, v, causal)
+
+
+def hold_k5(flash_attention, records, q, k, v, causal, what=""):
+    """K5 on q, k, v [B, h, L, hd] against its plain version, per element
+    (``k5_limit``), timed beside the plain version and SDPA."""
+    import torch.nn.functional as F
+    B, h, L, hd = q.shape
+    kw = dict(causal=causal, sm_scale=hd ** -0.5)
+    got = flash_attention.flash_attention(q, k, v, **kw).float()
+    want = flash_attention.flash_attention_ref(q, k, v, **kw).float()
+    kernel = "K5 causal" if causal else "K5 non-causal"
+    name = (f"{kernel} flash_attention {dtype_name(q.dtype)} B={B} h={h} "
+            f"L={L} hd={hd}{what}")
+    limit, formula = k5_limit(flash_attention, q, k, v, want, **kw)
+    diff = (got - want).abs()
+    worst = (diff / limit).max().item()
+    log(f"  {name}: |out| max {want.abs().max().item():.4e}, rms "
+        f"{want.square().mean().sqrt().item():.4e}; largest |got - want| "
+        f"is {worst:.4f} of its limit {formula}")
+    if not worst <= 1.0:
+        fail(f"{name}: |got - want| exceeds {formula} by {worst}x")
+    nbytes = 4 * q.numel() * q.element_size()  # q, k, v read, out written
+    flops = 4 * B * h * L * L * hd // (2 if causal else 1)
+    record(records, kernel, name, diff.max().item(), limit.max().item(),
+           lambda: flash_attention.flash_attention(q, k, v, **kw),
+           lambda: flash_attention.flash_attention_ref(q, k, v, **kw),
+           lambda: F.scaled_dot_product_attention(
+               q, k, v, is_causal=causal, scale=hd ** -0.5),
+           bound(nbytes, flops, dtype_name(q.dtype)))
+    records[-1]["limit"] = formula
+    records[-1]["worst_of_limit"] = worst
 
 
 def check_k2(torch, msdeform, records):
@@ -1008,9 +1038,9 @@ def check_small_tasks(torch, np):
             f"{counts}")
 
 
-def eval_slice(torch, np, card, path_ms):
-    """Phase 5; returns the kernels' launches in the timed run and keeps
-    K1's device ms per launch in ``path_ms``."""
+def eval_slice(torch, np, card, path_ms, timings):
+    """Phase 5; returns the kernels' launches in the timed run, keeps K1's
+    device ms per launch in ``path_ms`` and the p50 in ``timings``."""
     from psalm_tpu_torch import PSALMConfig
     from psalm_tpu_torch.eval.runner import EvalRunner, synthetic_panoptic_batch
     from psalm_tpu_torch.models.psalm import PSALM, init_weights_
@@ -1051,6 +1081,7 @@ def eval_slice(torch, np, card, path_ms):
         f"{np.unique(pan).tolist()[:10]}; sem_seg classes "
         f"{np.unique(sem).tolist()[:10]}")
     p50 = sorted(times)[len(times) // 2]
+    timings["eval p50 ms"] = p50 * 1e3
     log(f"eval slice: p50 {p50 * 1e3:.2f} ms, {TIMED_IMAGES / wall:.3f} img/s "
         f"({TIMED_IMAGES} images, batch 1, bf16) on {card}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -1562,6 +1593,452 @@ def serving_slice(torch, np, card):
     return launches
 
 
+# -- phase 12: the eval CLIs ------------------------------------------------
+
+CLI_IMAGES = 4          # images of the tree: one warm-up, then all timed
+CLI_HW = (480, 640)     # bench.py's original geometry
+CLI_SEGMENTS = 12       # panoptic segments (and semantic regions) an image
+CLI_ANNS = 8            # instance / referring / region annotations an image
+CLI_SENTENCE = 12       # words (tokens) of a referring sentence
+SEM_CLASSES = 150       # names of the semantic list (ADE-150's count)
+# COCO panoptic's 53 stuff categories (panoptic_coco_categories.json)
+COCO_STUFF = (
+    (92, "banner"), (93, "blanket"), (95, "bridge"), (100, "cardboard"),
+    (107, "counter"), (109, "curtain"), (112, "door-stuff"),
+    (118, "floor-wood"), (119, "flower"), (122, "fruit"), (125, "gravel"),
+    (128, "house"), (130, "light"), (133, "mirror-stuff"), (138, "net"),
+    (141, "pillow"), (144, "platform"), (145, "playingfield"),
+    (147, "railroad"), (148, "river"), (149, "road"), (151, "roof"),
+    (154, "sand"), (155, "sea"), (156, "shelf"), (159, "snow"),
+    (161, "stairs"), (166, "tent"), (168, "towel"), (171, "wall-brick"),
+    (175, "wall-stone"), (176, "wall-tile"), (177, "wall-wood"),
+    (178, "water-other"), (180, "window-blind"), (181, "window-other"),
+    (184, "tree-merged"), (185, "fence-merged"), (186, "ceiling-merged"),
+    (187, "sky-other-merged"), (188, "cabinet-merged"),
+    (189, "table-merged"), (190, "floor-other-merged"),
+    (191, "pavement-merged"), (192, "mountain-merged"),
+    (193, "grass-merged"), (194, "dirt-merged"), (195, "paper-merged"),
+    (196, "food-other-merged"), (197, "building-other-merged"),
+    (198, "rock-merged"), (199, "wall-other-merged"), (200, "rug-merged"))
+SENTENCE_WORDS = ("the", "person", "on", "left", "right", "holding", "a",
+                  "red", "blue", "umbrella", "near", "car", "behind", "tall",
+                  "small", "dog", "table", "in", "front", "of", "white")
+METRIC_KEYS_NOT_PERCENT = ("n", "thr", "type", "images_per_sec")
+
+
+class WordTokenizer:
+    """A deterministic word tokenizer for the CLIs (no tokenizer files on the
+    card's machine): one id per space-separated word, 3 + crc32 % (vocab -
+    3), so a class name or a sentence word is one token or a few, as a BPE
+    vocabulary gives them."""
+
+    def __init__(self, vocab):
+        self.vocab = vocab
+
+    def encode(self, text, add_special_tokens=False):
+        import zlib
+        return [3 + zlib.crc32(w.encode()) % (self.vocab - 3)
+                for w in text.replace("\n", " \n ").split(" ") if w]
+
+
+def write_cli_tree(np, root, n_images, hw, n_thing, n_stuff, segments, anns,
+                   sem_classes, seed):
+    """A COCO-format tree from ``seed``: val2017/ JPEGs; panoptic_val2017/
+    id2rgb PNGs of ``segments`` Voronoi cells (and a void strip) with their
+    annotations/panoptic_val2017.json over ``n_thing`` COCO thing and
+    ``n_stuff`` stuff categories; instance.json with ``anns`` RLE
+    rectangles an image, a referring sentence and a point prompt each; and
+    a semantic list with label PNGs of ``sem_classes`` classes (255 void).
+    Returns the paths the CLIs take."""
+    from PIL import Image
+    from psalm_tpu_torch.data import coco_rle
+    from psalm_tpu_torch.data.datasets import COCO_CLASS_IDS, COCO_CLASS_NAMES
+    rng = np.random.default_rng(seed)
+    H, W = hw
+    paths = {"root": os.path.join(root, "coco"),
+             "instance_json": os.path.join(root, "instance.json"),
+             "sem_list": os.path.join(root, "semantic_list.txt"),
+             "sem_labels": os.path.join(root, "semantic_labels"),
+             "sem_names": os.path.join(root, "semantic_names.txt")}
+    images = os.path.join(paths["root"], "val2017")
+    paths["images"] = paths["sem_images"] = images
+    pan_dir = os.path.join(paths["root"], "panoptic_val2017")
+    for d in (images, pan_dir, os.path.join(paths["root"], "annotations"),
+              paths["sem_labels"]):
+        os.makedirs(d, exist_ok=True)
+    cats = ([{"id": i, "name": n, "isthing": 1} for i, n in
+             zip(COCO_CLASS_IDS[:n_thing], COCO_CLASS_NAMES[:n_thing])]
+            + [{"id": i, "name": n, "isthing": 0}
+               for i, n in COCO_STUFF[:n_stuff]])
+    yy, xx = np.mgrid[:H, :W]
+    pan_anns, inst, sem_lines = [], [], []
+    for i in range(n_images):
+        name = f"{i:012d}"
+        Image.fromarray(rng.integers(0, 256, (H, W, 3), dtype=np.uint8)).save(
+            os.path.join(images, name + ".jpg"))
+        seeds = rng.uniform((0, 0), (H, W), (segments, 2))
+        cell = ((yy[..., None] - seeds[:, 0]) ** 2
+                + (xx[..., None] - seeds[:, 1]) ** 2).argmin(-1)
+        void = xx < max(W // 80, 1)
+        seg_ids = rng.choice(np.arange(1, 2 ** 16), segments, replace=False)
+        pan = np.where(void, 0, seg_ids[cell]).astype(np.uint32)
+        Image.fromarray(coco_rle.id2rgb(pan)).save(
+            os.path.join(pan_dir, name + ".png"))
+        pan_anns.append({"image_id": i, "file_name": name + ".png",
+                         "segments_info": [
+                             {"id": int(s), "iscrowd": 0,
+                              "category_id": cats[int(c)]["id"]}
+                             for s, c in zip(seg_ids, rng.integers(
+                                 0, len(cats), segments))]})
+        records = []
+        for _ in range(anns):
+            h, w = rng.integers(H // 8, H // 2), rng.integers(W // 8, W // 2)
+            y0, x0 = rng.integers(0, H - h), rng.integers(0, W - w)
+            mask = np.zeros((H, W), np.uint8)
+            mask[y0:y0 + h, x0:x0 + w] = 1
+            point = np.zeros((H, W), np.uint8)
+            point[y0 + h // 2, x0 + w // 2] = 1
+            rle, prle = coco_rle.encode(mask), coco_rle.encode(point)
+            records.append({
+                "category_id": COCO_CLASS_IDS[int(rng.integers(n_thing))],
+                "bbox": [int(x0), int(y0), int(w), int(h)], "iscrowd": 0,
+                "segmentation": dict(rle, counts=rle["counts"].decode()),
+                "point_visual_prompt_mask": dict(
+                    prle, counts=prle["counts"].decode())})
+        sentence = " ".join(rng.choice(SENTENCE_WORDS, CLI_SENTENCE))
+        inst.append({"image": name + ".jpg", "new_img_id": i,
+                     "image_info": {"height": H, "width": W,
+                                    "file_name": name + ".jpg"},
+                     "instruction": [{"sent": sentence}], "anns": records})
+        label = rng.integers(0, sem_classes, segments)[cell].astype(np.uint8)
+        label[void] = 255
+        Image.fromarray(label).save(
+            os.path.join(paths["sem_labels"], name + ".png"))
+        sem_lines.append(f"{name}.jpg {name}.png")
+    with open(os.path.join(paths["root"],
+                           "annotations/panoptic_val2017.json"), "w") as f:
+        json.dump({"annotations": pan_anns, "categories": cats,
+                   "images": [{"id": i, "file_name": f"{i:012d}.jpg",
+                               "height": H, "width": W}
+                              for i in range(n_images)]}, f)
+    with open(paths["instance_json"], "w") as f:
+        json.dump(inst, f)
+    with open(paths["sem_list"], "w") as f:
+        f.write("\n".join(sem_lines))
+    with open(paths["sem_names"], "w") as f:
+        f.write("\n".join(f"ade{k:03d} stuff" for k in range(sem_classes)))
+    return paths
+
+
+# each CLI: (module, task, the flags beside the common ones)
+CLIS = (
+    ("panoptic_segmentation", "panoptic",
+     lambda p: dict(json_path=p["root"], image_folder=None,
+                    eval_batch_size=1)),
+    ("semantic_segmentation", "semantic",
+     lambda p: dict(list_path=p["sem_list"], image_folder=p["sem_images"],
+                    label_folder=p["sem_labels"], class_names=p["sem_names"],
+                    num_class=0, ignore_label=255)),
+    ("instance_segmentation", "instance",
+     lambda p: dict(json_path=p["instance_json"], image_folder=p["images"],
+                    eval_batch_size=1)),
+    ("referring_segmentation", "referring",
+     lambda p: dict(json_path=p["instance_json"], image_folder=p["images"],
+                    eval_batch_size=1)),
+    ("region_segmentation", "region",
+     lambda p: dict(json_path=p["instance_json"], image_folder=p["images"],
+                    eval_batch_size=1,
+                    region_mask_type="point_visual_prompt_mask")),
+    ("eval_grefcoco", "referring",
+     lambda p: dict(json_path=p["instance_json"], image_folder=p["images"],
+                    thr=0.6)),
+    ("cityscapes_instance", "instance",
+     lambda p: dict(json_path=p["instance_json"], image_folder=p["images"])),
+)
+
+
+def run_cli(module, task, flags, paths, model, cfg, tokenizer, out_dir,
+            limit):
+    """One CLI's ``evaluation`` on the tree, its printout kept out of the
+    log: (results, wall seconds)."""
+    import argparse
+    import contextlib
+    import importlib
+    import io
+    from psalm_tpu_torch import SegTask
+    args = argparse.Namespace(model_path="", model_max_length=2048,
+                              seq_bucket=128, limit=limit,
+                              **flags(paths))
+    if module != "cityscapes_instance":  # the one CLI without the flag
+        args.output_dir = out_dir
+    evaluation = importlib.import_module(
+        f"psalm_tpu_torch.eval.{module}").evaluation
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = evaluation(args, cfg=cfg.replace(seg_task=SegTask(task)),
+                         tokenizer=tokenizer, model=model)
+    return res, time.perf_counter() - t0
+
+
+def check_metrics(np, module, res):
+    """Every metric finite, the percentages in [0, 100]."""
+    def walk(x, key=""):
+        if isinstance(x, dict):
+            for k, v in x.items():
+                walk(v, k)
+        elif key not in METRIC_KEYS_NOT_PERCENT:
+            if not (np.isfinite(x) and 0 <= x <= 100):
+                fail(f"{module}: metric {key} = {x}")
+    walk(res)
+    if not res.get("images_per_sec", 0) > 0:
+        fail(f"{module}: images_per_sec {res.get('images_per_sec')}")
+
+
+def read_artifacts(np, module, out_dir, n, hw, Q):
+    """Read a CLI's artifact files back: shapes, ids and scores."""
+    import pickle
+    import cv2
+    from psalm_tpu_torch.data import coco_rle
+    if module == "panoptic_segmentation":
+        pred_dir = os.path.join(out_dir, "panoptic_preds")
+        with open(os.path.join(pred_dir, "predictions.json")) as f:
+            anns = json.load(f)["annotations"]
+        if len(anns) != n:
+            fail(f"{module}: {len(anns)} predictions for {n} images")
+        for ann in anns:
+            png = cv2.imread(os.path.join(pred_dir, ann["file_name"]))
+            if png is None or png.shape[:2] != hw:
+                fail(f"{module}: unreadable PNG {ann['file_name']}")
+            ids = set(np.unique(coco_rle.rgb2id(png[..., ::-1])).tolist())
+            if ids - {0} != {s["id"] for s in ann["segments_info"]}:
+                fail(f"{module}: PNG ids {ids} != declared segments")
+        return f"{n} PNGs + predictions.json, " \
+               f"{sum(len(a['segments_info']) for a in anns)} segments"
+    if module == "instance_segmentation":
+        with open(os.path.join(out_dir, "coco_instances_results.json")) as f:
+            recs = json.load(f)
+        if len(recs) != n * Q:
+            fail(f"{module}: {len(recs)} records for {n} images x {Q}")
+        for r in recs:
+            m = coco_rle.decode(r["segmentation"])
+            if m.shape != hw or not 0 <= r["score"] <= 1:
+                fail(f"{module}: record {m.shape}, score {r['score']}")
+        return f"{len(recs)} RLE records"
+    if module == "semantic_segmentation":
+        with open(os.path.join(out_dir, "sem_seg_predictions.json")) as f:
+            recs = json.load(f)
+        if len({r["file_name"] for r in recs}) != n or any(
+                coco_rle.decode(r["segmentation"]).shape != hw for r in recs):
+            fail(f"{module}: sem_seg_predictions.json does not cover {n} "
+                 "images at the original size")
+        return f"{len(recs)} per-class RLE records"
+    if module == "cityscapes_instance":
+        return "no artifacts (the CLI writes none)"
+    pkls = [f for f in os.listdir(out_dir) if f.endswith(".pkl")]
+    txts = [f for f in os.listdir(out_dir) if f.endswith(".txt")]
+    if len(pkls) != 1 or len(txts) != 1:
+        fail(f"{module}: artifacts {sorted(os.listdir(out_dir))}")
+    with open(os.path.join(out_dir, pkls[0]), "rb") as f:
+        saved = pickle.load(f)
+    with open(os.path.join(out_dir, txts[0])) as f:
+        txt = f.read()
+    if len(saved) != n or not txt.startswith("benchmark: ") or any(
+            coco_rle.decode(m).shape != hw for s in saved
+            for m in s["pred"] + s["gt"]):
+        fail(f"{module}: {pkls[0]} / {txts[0]} do not read back")
+    return f"{pkls[0]} ({sum(len(s['pred']) for s in saved)} masks), {txts[0]}"
+
+
+def clis_slice(torch, np, card, timings, records):
+    """Phase 12; returns each CLI's launches in its timed run. Phi's
+    attention inputs are kept at each sequence length the CLIs give it, and
+    K5 is held against its plain version on them."""
+    import shutil
+    from psalm_tpu_torch import PSALMConfig
+    from psalm_tpu_torch.data.datasets import DataConfig, PanopticDataset, collate
+    from psalm_tpu_torch.eval.runner import EvalRunner, bucket_for_sizes
+    from psalm_tpu_torch.models import phi
+    from psalm_tpu_torch.models.psalm import PSALM, init_weights_
+    from psalm_tpu_torch.ops import flash_attention
+    root = os.path.join(HERE, "build", "clis")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    paths = write_cli_tree(np, root, CLI_IMAGES, CLI_HW, n_thing=80,
+                           n_stuff=53, segments=CLI_SEGMENTS, anns=CLI_ANNS,
+                           sem_classes=SEM_CLASSES, seed=12)
+    log(f"tree: {CLI_IMAGES} images of {CLI_HW[0]}x{CLI_HW[1]}, 133 "
+        f"panoptic categories, {CLI_SEGMENTS} segments, {CLI_ANNS} RLE "
+        f"annotations and a {CLI_SENTENCE}-word sentence an image, "
+        f"{SEM_CLASSES} semantic names; written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    cfg = PSALMConfig(compute_dtype="bfloat16")
+    model = PSALM(cfg, dtype=torch.bfloat16, device="cuda", use_flash=True)
+    init_weights_(model, torch.Generator(device="cuda").manual_seed(12))
+    model.to(torch.bfloat16)
+    tokenizer = WordTokenizer(cfg.phi.vocab_size)
+    Q = cfg.mask_decoder.num_queries
+    per_image = expected(K1=cfg.pixel_decoder.transformer_enc_layers,
+                         K3=sum(cfg.swin.depths),
+                         K5_causal=cfg.phi.num_layers)
+    # the runner alone on the panoptic CLI's first image, with this model
+    ds = PanopticDataset(paths["root"], tokenizer, DataConfig(
+        image_size=cfg.image_size, num_image_tokens=(cfg.image_size // 64) ** 2,
+        num_seg_queries=Q, pad_len=2048), is_train=False)
+    t0 = time.perf_counter()
+    for i in range(CLI_IMAGES):
+        batch = collate([ds[i]], seq_bucket=128)
+    data_ms = (time.perf_counter() - t0) / CLI_IMAGES * 1e3
+    batch = collate([ds[0]], seq_bucket=128)
+    runner = EvalRunner(model, cfg, num_class_names=len(ds.coco_class_name),
+                        is_thing=ds.is_thing + [False],
+                        bucket_hw=bucket_for_sizes(ds.image_sizes))
+    times, _, _, _ = timed_images(torch, runner, batch, 2, 3)
+    infer_p50 = sorted(times)[1] * 1e3
+    launches = {}
+    seen = {}    # Phi's sequence length -> its K5 launches in a timed run
+    inputs = {}  # sequence length -> the (q, k, v) of its first launch
+
+    def watched(q, k, v, **kw):
+        seen[q.shape[2]] = seen.get(q.shape[2], 0) + 1
+        if q.shape[2] not in inputs:
+            inputs[q.shape[2]] = (q.clone(), k.clone(), v.clone())
+        return kernel(q, k, v, **kw)
+
+    kernel, phi.flash_attention = phi.flash_attention, watched
+    for module, task, flags in CLIS:
+        out = os.path.join(root, "out", module)
+        run_cli(module, task, flags, paths, model, cfg, tokenizer,
+                os.path.join(root, "warmup", module), 1)
+        torch.cuda.synchronize()
+        zero_counts()
+        seen.clear()
+        res, wall = run_cli(module, task, flags, paths, model, cfg, tokenizer,
+                            out, CLI_IMAGES)
+        counts = launch_counts()
+        log(f"{module}: K5 causal launches by Phi's sequence length "
+            f"{dict(sorted(seen.items()))}")
+        expect = {k: v * (CLI_IMAGES) for k, v in per_image.items()}
+        if counts != expect:
+            fail(f"{module}: kernel launches {counts} != {expect}")
+        check_metrics(np, module, res)
+        if module == "panoptic_segmentation" and \
+                "panoptic_official_gt" not in res:
+            fail("panoptic: no panoptic_official_gt score")
+        what = read_artifacts(np, module, out, CLI_IMAGES, CLI_HW, Q)
+        headline = {k: v for k, v in res.items() if k != "images_per_sec"}
+        log(f"{module}: {(CLI_IMAGES) / wall:.3f} img/s "
+            f"({CLI_IMAGES} images, {wall / CLI_IMAGES * 1e3:.1f} "
+            f"ms an image; the CLI's own figure "
+            f"{res['images_per_sec']:.3f} img/s) on {card}; launches per "
+            f"image as expected; artifacts: {what}; {json.dumps(headline)}")
+        launches[f"clis/{module}"] = counts
+        if module == "panoptic_segmentation":
+            cli_ms = wall / (CLI_IMAGES) * 1e3
+            log(f"panoptic CLI {cli_ms:.1f} ms an image against "
+                f"EvalRunner.infer p50 {infer_p50:.1f} ms on its first "
+                f"image with this model (use_flash) and phase 5's p50 "
+                f"{timings['eval p50 ms']:.1f} ms (no use_flash): "
+                f"{cli_ms - infer_p50:.1f} ms an image of data layer, "
+                f"metrics and artifacts that the Prefetcher does not hide; "
+                f"the dataset read and collate alone take {data_ms:.1f} ms "
+                f"an image (on the Prefetcher's thread in the CLI)")
+    phi.flash_attention = kernel
+    log("K5 causal on the CLIs' own attention inputs (Phi layer 0), at each "
+        "sequence length they gave it")
+    for L in sorted(inputs):
+        hold_k5(flash_attention, records, *inputs[L], True,
+                " (phase 12 activations)")
+    del model, inputs
+    gc.collect()
+    return launches
+
+
+def check_small_clis(torch, np):
+    """Tiny config (Phi use_flash, 2 heads of 32) in f32: the panoptic and
+    instance CLIs with the kernels on the card against the same CLIs with
+    the plain versions on the CPU, same weights, same tree. The class head
+    is scaled so that some queries pass the panoptic 0.8 threshold: the
+    CPU's PNGs must hold segments, or the comparison would see void alone."""
+    import dataclasses
+    import shutil
+    from psalm_tpu_torch import SegTask, tiny_test_config
+    from psalm_tpu_torch.data import coco_rle
+    from psalm_tpu_torch.models.psalm import PSALM, init_weights_
+    import cv2
+    base = tiny_test_config()
+    cfg = base.replace(phi=dataclasses.replace(base.phi, num_heads=2))
+    root = os.path.join(HERE, "build", "clis_small")
+    shutil.rmtree(root, ignore_errors=True)
+    paths = write_cli_tree(np, root, 3, (48, 64), n_thing=3, n_stuff=2,
+                           segments=4, anns=2, sem_classes=4, seed=13)
+    tokenizer = WordTokenizer(cfg.phi.vocab_size)
+    cpu = init_weights_(PSALM(cfg, device="cpu", use_flash=True),
+                        torch.Generator().manual_seed(7))
+    with torch.no_grad():  # sampling offsets beyond the init's +-4 px
+        for layer in cpu.pixel_decoder.transformer.encoder.layers:
+            layer.self_attn.sampling_offsets.bias.mul_(3.0)
+        cpu.predictor.CLASS_proj.layers[-1].weight.mul_(10.0)
+    gpu = PSALM(cfg, device="cuda", use_flash=True)
+    gpu.load_state_dict(cpu.state_dict())
+    for module, task, flags in CLIS[:1] + CLIS[2:3]:
+        res = {}
+        for dev, model in (("cpu", cpu), ("cuda", gpu)):
+            res[dev] = run_cli(module, task, flags, paths, model, cfg,
+                               tokenizer, os.path.join(root, dev, module),
+                               3)[0]
+            res[dev].pop("images_per_sec")
+        if module == "panoptic_segmentation":
+            pred = [os.path.join(root, dev, module, "panoptic_preds")
+                    for dev in ("cpu", "cuda")]
+            names = sorted(f for f in os.listdir(pred[0]) if f.endswith(".png"))
+            agree = [np.mean(coco_rle.rgb2id(cv2.imread(os.path.join(
+                pred[0], f))) == coco_rle.rgb2id(cv2.imread(os.path.join(
+                    pred[1], f)))) for f in names]
+            with open(os.path.join(pred[0], "predictions.json")) as f:
+                segments = sum(len(a["segments_info"])
+                               for a in json.load(f)["annotations"])
+            if not segments:
+                fail(f"small clis {module}: the CPU's PNGs hold no segment")
+            if len(names) != 3 or min(agree) < 0.99:
+                fail(f"small clis {module}: PNG agreement {agree}")
+            # the semantic maps: the same decisions give the same metrics
+            sem = [res[dev]["semantic"] for dev in ("cpu", "cuda")]
+            if sem[0].keys() != sem[1].keys() or any(
+                    abs(sem[1][k] - sem[0][k]) > 1e-6 for k in sem[0]):
+                fail(f"small clis {module}: semantic metrics {sem[1]} != "
+                     f"the CPU's {sem[0]} (limit 1e-6)")
+            what = (f"{segments} segments on the CPU; panoptic PNGs agree on "
+                    f"{min(agree):.6f} at worst; semantic metrics within 1e-6")
+        else:
+            recs = []
+            for dev in ("cpu", "cuda"):
+                with open(os.path.join(root, dev, module,
+                                       "coco_instances_results.json")) as f:
+                    recs.append(json.load(f))
+            want, got = recs
+            Q = cfg.mask_decoder.num_queries
+            if not len(got) == len(want) == 3 * Q:
+                fail(f"small clis {module}: {len(got)} vs {len(want)} records")
+            for b in range(3):
+                ranked = {
+                    "scores": [np.asarray([r["score"] for r in
+                                           rs[b * Q:(b + 1) * Q]])
+                               for rs in (got, want)],
+                    "classes": [np.asarray([r["category_id"] for r in
+                                            rs[b * Q:(b + 1) * Q]])
+                                for rs in (got, want)],
+                    "masks": [np.stack([coco_rle.decode(r["segmentation"])
+                                        for r in rs[b * Q:(b + 1) * Q]])
+                              for rs in (got, want)]}
+                ranked_agree(np, {k: [v[0]] for k, v in ranked.items()},
+                             {k: [v[1]] for k, v in ranked.items()},
+                             f"clis {module} image {b}")
+            what = "ranked items agree"
+        log(f"  {module}: {what}; metrics cpu {json.dumps(res['cpu'])} / "
+            f"cuda {json.dumps(res['cuda'])}")
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "psalm_tpu_torch")):
         fail("psalm_tpu_torch is not beside chip_smoke.py: run it from the "
@@ -1610,7 +2087,8 @@ def main():
 
     log("== eval slice (PSALMConfig(), bf16, EvalRunner.infer)")
     path_ms = {}  # K1's and K2's device ms per launch on the paths
-    eval_launches = eval_slice(torch, np, card, path_ms)
+    timings = {}  # phase 5's p50, which phase 12 sets its CLIs beside
+    eval_launches = eval_slice(torch, np, card, path_ms, timings)
     torch.cuda.empty_cache()
 
     log("== serving slice (PSALMConfig(), int4 'pallas' Phi, bf16, ModelWorker)")
@@ -1637,6 +2115,13 @@ def main():
 
     log("== training, dense pixel decoder (attention_mode='dense', 2 heads)")
     paths.update(train_slice(torch, np, card, "dense", path_ms))
+    torch.cuda.empty_cache()
+
+    log("== small CLIs (tiny config, f32: card kernels vs CPU plain)")
+    check_small_clis(torch, np)
+
+    log("== eval CLIs (PSALMConfig(), bf16, use_flash, evaluation(...))")
+    paths.update(clis_slice(torch, np, card, timings, records))
 
     bad = [m for m in sys.modules if m in ("jax", "flax", "optax")
            or m == "psalm_tpu" or m.startswith("psalm_tpu.")]

@@ -1,23 +1,429 @@
-"""Batches for training: the task sampler, the collator and a synthetic
-panoptic dataset.
+"""Task datasets, the task sampler, the collator and a synthetic panoptic
+dataset.
 
-``UnifiedTaskSampler`` and ``collate`` are the port's own copies of
-``psalm_tpu/data/datasets.py``'s (held equal by
-``tests/test_torch_copies.py``): host numpy, batches that hold one task
-each. The COCO and RefCOCO dataset classes are not ported yet (their files
-are on neither machine); ``SyntheticPanopticDataset`` stands in for
-``PanopticDataset`` with the same sample keys, from a seed.
+Counterpart of ``psalm_tpu/data/datasets.py`` (held equal by
+``tests/test_torch_copies.py`` and ``tests/test_torch_data.py``). Behavioral
+spec: psalm/train/train_datasets.py — one dataset per task family
+(``PanopticDataset``, ``InstanceDataset``, ``InteractiveDataset``,
+``ReferringDataset``, ``SemanticDataset``, ``MMConvDataset``), each building
+the exact prompt strings (§2.3 of SURVEY.md), tokenizing with sentinel
+splicing and attaching targets; every sample is expanded by
+``data/splicer.py`` into aligned static arrays, and targets are padded to a
+static N_max with validity masks. ``UnifiedTaskSampler`` serves batches that
+hold one task each (the reference's UnifyDatasetSingleDatasetForBatch,
+train_datasets.py:721-795), and ``collate`` stacks them.
+``SyntheticPanopticDataset`` makes ``PanopticDataset``-keyed training
+samples from a seed.
+
+COCO class tables are public COCO metadata (same 80-class list the reference
+embeds at train_datasets.py:371-396).
 """
 
 from __future__ import annotations
 
+import json
+import os
 import random
 from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
+from PIL import Image
 
-from psalm_tpu_torch.data.constants import CLS_TOKEN_INDEX, IMAGE_TOKEN_INDEX, SEG_TOKEN_INDEX
-from psalm_tpu_torch.data.splicer import splice
+from psalm_tpu_torch.data import coco_rle
+from psalm_tpu_torch.data.constants import (CLS_TOKEN_INDEX,
+                                            IMAGE_TOKEN_INDEX,
+                                            SEG_TOKEN_INDEX)
+from psalm_tpu_torch.data.conversation import conv_llava_phi
+from psalm_tpu_torch.data.mappers import ImageMapper
+from psalm_tpu_torch.data.splicer import SplicedSample, splice
+from psalm_tpu_torch.data.tokenization import (build_conversation,
+                                               interactive_prompt,
+                                               panoptic_prompt,
+                                               referring_prompt,
+                                               tokenize_class_names,
+                                               tokenize_conversation,
+                                               tokenize_referring_sentence)
+
+COCO_CLASS_IDS = [
+    1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22,
+    23, 24, 25, 27, 28, 31, 32, 33, 34, 35, 36, 37, 38, 39, 40, 41, 42, 43,
+    44, 46, 47, 48, 49, 50, 51, 52, 53, 54, 55, 56, 57, 58, 59, 60, 61, 62,
+    63, 64, 65, 67, 70, 72, 73, 74, 75, 76, 77, 78, 79, 80, 81, 82, 84, 85,
+    86, 87, 88, 89, 90]
+COCO_CLASS_NAMES = [
+    'person', 'bicycle', 'car', 'motorcycle', 'airplane', 'bus', 'train',
+    'truck', 'boat', 'traffic light', 'fire hydrant', 'stop sign',
+    'parking meter', 'bench', 'bird', 'cat', 'dog', 'horse', 'sheep', 'cow',
+    'elephant', 'bear', 'zebra', 'giraffe', 'backpack', 'umbrella', 'handbag',
+    'tie', 'suitcase', 'frisbee', 'skis', 'snowboard', 'sports ball', 'kite',
+    'baseball bat', 'baseball glove', 'skateboard', 'surfboard',
+    'tennis racket', 'bottle', 'wine glass', 'cup', 'fork', 'knife', 'spoon',
+    'bowl', 'banana', 'apple', 'sandwich', 'orange', 'broccoli', 'carrot',
+    'hot dog', 'pizza', 'donut', 'cake', 'chair', 'couch', 'potted plant',
+    'bed', 'dining table', 'toilet', 'tv', 'laptop', 'mouse', 'remote',
+    'keyboard', 'cell phone', 'microwave', 'oven', 'toaster', 'sink',
+    'refrigerator', 'book', 'clock', 'vase', 'scissors', 'teddy bear',
+    'hair drier', 'toothbrush']
+
+
+class DataConfig:
+    """Static-shape knobs for the pipeline."""
+
+    def __init__(self, image_size=1024, num_image_tokens=256, num_seg_queries=100,
+                 pad_len=2048, max_gt_masks=100, max_regions=20,
+                 num_region_points=256, seed=0, device_normalize=True):
+        self.image_size = image_size
+        # ship uint8 canvases; the model normalizes on device (4x less
+        # host->device traffic; identical math — see data/mappers.py)
+        self.device_normalize = device_normalize
+        self.num_image_tokens = num_image_tokens
+        self.num_seg_queries = num_seg_queries
+        self.pad_len = pad_len
+        self.max_gt_masks = max_gt_masks
+        self.max_regions = max_regions
+        self.num_region_points = num_region_points
+        self.seed = seed
+
+
+class BaseTaskDataset:
+    dataset_type = "base"
+
+    def __init__(self, tokenizer, cfg: DataConfig, class_names=None,
+                 is_train=True):
+        self.tokenizer = tokenizer
+        self.cfg = cfg
+        self.mapper = ImageMapper(cfg.image_size,
+                                  cfg.device_normalize)
+        self.is_train = is_train
+        self.coco_class_name = list(class_names) if class_names else \
+            COCO_CLASS_NAMES + ["background"]
+        self.rng = np.random.default_rng(cfg.seed)
+
+    def __len__(self):
+        return len(self.data)
+
+    # -- shared helpers -----------------------------------------------------
+
+    def _load_image(self, path: str) -> np.ndarray:
+        return np.asarray(Image.open(path).convert("RGB"))
+
+    def _splice(self, input_ids, labels, **kw) -> SplicedSample:
+        return splice(input_ids, labels if self.is_train else None,
+                      num_image_tokens=self.cfg.num_image_tokens,
+                      num_seg_queries=self.cfg.num_seg_queries,
+                      pad_len=self.cfg.pad_len, **kw)
+
+    def _pad_targets(self, gt: Dict) -> Dict:
+        N = self.cfg.max_gt_masks
+        S = self.cfg.image_size
+        n = min(len(gt["gt_classes"]), N)
+        masks = np.zeros((N, S, S), np.uint8)
+        labels = np.zeros((N,), np.int64)
+        valid = np.zeros((N,), bool)
+        masks[:n] = gt["gt_masks"][:n]
+        labels[:n] = gt["gt_classes"][:n]
+        valid[:n] = True
+        return {"gt_masks": masks, "gt_labels": labels, "gt_valid": valid}
+
+
+class PanopticDataset(BaseTaskDataset):
+    """COCO_panoptic_dataset (train_datasets.py:43-234); the ``shuffle``
+    variant reproduces COCO_panoptic_dataset_random (:489-563) emitting a
+    random_idx permutation."""
+
+    dataset_type = "panoptic_coco"
+
+    def __init__(self, root, tokenizer, cfg, is_train=True, shuffle_classes=False):
+        split = "train2017" if is_train else "val2017"
+        self.root = root
+        self.image_path = os.path.join(root, split)
+        self.pan_gt_path = os.path.join(root, f"panoptic_{split}")
+        ann_path = os.path.join(root, f"annotations/panoptic_{split}.json")
+        with open(ann_path) as f:
+            meta = json.load(f)
+        self.data = meta["annotations"]
+        # original sizes (when the json carries an images table) let eval
+        # CLIs pick a tight original-resolution bucket for the heads
+        self.image_sizes = [(im["height"], im["width"])
+                            for im in meta.get("images", [])] or None
+        cats = meta["categories"]
+        self.coco_id_to_cont_id = {c["id"]: i for i, c in enumerate(cats)}
+        self.is_thing = [bool(c["isthing"]) for c in cats]
+        super().__init__(tokenizer, cfg,
+                         class_names=[c["name"] for c in cats] + ["background"],
+                         is_train=is_train)
+        self.shuffle_classes = shuffle_classes
+
+    def __getitem__(self, idx) -> Dict[str, Any]:
+        rec = self.data[idx]
+        image = self._load_image(os.path.join(
+            self.image_path, os.path.splitext(rec["file_name"])[0] + ".jpg"))
+        proc = self.mapper.transform_image(image)
+        pan_rgb = np.asarray(Image.open(
+            os.path.join(self.pan_gt_path, rec["file_name"])).convert("RGB"))
+        segments = [dict(s, category_id=self.coco_id_to_cont_id[s["category_id"]])
+                    for s in rec["segments_info"]]
+        gt = self.mapper.panoptic_targets(pan_rgb, segments)
+
+        names = self.coco_class_name
+        K = len(names)
+        random_idx = None
+        if self.shuffle_classes:
+            perm = list(range(K))
+            random.shuffle(perm)
+            names = [self.coco_class_name[i] for i in perm]
+            random_idx = np.argsort(perm)
+        human, gpt = panoptic_prompt(K)
+        prompt = build_conversation(human, gpt)
+        input_ids, labels = tokenize_conversation(prompt, self.tokenizer)
+        cls_ids, cls_idx = tokenize_class_names(names, self.tokenizer)
+        s = self._splice(input_ids, labels, class_name_ids=cls_ids,
+                         cls_indices=cls_idx)
+
+        out = {**s.as_dict(), "images": proc.image,
+               "padding_mask": proc.padding_mask,
+               "resized_hw": np.asarray(proc.resized_hw),
+               "original_hw": np.asarray(proc.original_hw),
+               **self._pad_targets({"gt_classes": gt["gt_classes"],
+                                    "gt_masks": gt["gt_masks"]}),
+               "image_id": rec.get("image_id", idx),
+               "file_name": rec["file_name"],
+               "dataset_type": self.dataset_type,
+               "num_class_names": K}
+        if random_idx is not None:
+            out["random_idx"] = random_idx.astype(np.int32)
+        return out
+
+
+class InstanceDataset(BaseTaskDataset):
+    """COCO_instance_dataset (train_datasets.py:356-487): panoptic-style
+    prompt over the 80 thing classes + background."""
+
+    dataset_type = "instance_coco"
+
+    def __init__(self, json_path, image_folder, tokenizer, cfg, is_train=True):
+        with open(json_path) as f:
+            self.data = json.load(f)
+        self.image_folder = image_folder
+        self.coco_id_to_cont_id = {cid: i for i, cid in enumerate(COCO_CLASS_IDS)}
+        # original sizes -> tight eval bucket for the original-grid heads
+        self.image_sizes = [
+            (r["image_info"]["height"], r["image_info"]["width"])
+            for r in self.data if "image_info" in r] or None
+        super().__init__(tokenizer, cfg, is_train=is_train)
+
+    def _record_targets(self, rec):
+        anns = []
+        for a in rec["anns"]:
+            cid = a["category_id"]
+            if cid in self.coco_id_to_cont_id:
+                cid = self.coco_id_to_cont_id[cid]
+            anns.append(dict(a, category_id=cid))
+        hw = (rec["image_info"]["height"], rec["image_info"]["width"])
+        return self.mapper.instance_targets(anns, hw), anns, hw
+
+    def __getitem__(self, idx):
+        rec = self.data[idx]
+        image = self._load_image(os.path.join(self.image_folder, rec["image"]))
+        proc = self.mapper.transform_image(image)
+        gt, _, _ = self._record_targets(rec)
+
+        K = len(self.coco_class_name)
+        human, gpt = panoptic_prompt(K)
+        prompt = build_conversation(human, gpt)
+        input_ids, labels = tokenize_conversation(prompt, self.tokenizer)
+        cls_ids, cls_idx = tokenize_class_names(self.coco_class_name,
+                                                self.tokenizer)
+        s = self._splice(input_ids, labels, class_name_ids=cls_ids,
+                         cls_indices=cls_idx)
+        return {**s.as_dict(), "images": proc.image,
+                "padding_mask": proc.padding_mask,
+                "resized_hw": np.asarray(proc.resized_hw),
+                "original_hw": np.asarray(proc.original_hw),
+                **self._pad_targets({"gt_classes": gt["gt_classes"],
+                                     "gt_masks": gt["gt_masks"]}),
+                "image_id": rec["new_img_id"],
+                "file_name": rec["image"],
+                "dataset_type": self.dataset_type,
+                "num_class_names": K}
+
+
+class InteractiveDataset(InstanceDataset):
+    """COCO_interactive_dataset (train_datasets.py:236-354): visual-prompt
+    regions ride the LLM; targets are the prompted instances in order."""
+
+    dataset_type = "region_coco"
+
+    def __init__(self, json_path, image_folder, tokenizer, cfg, is_train=True,
+                 region_mask_type="point_visual_prompt_mask"):
+        super().__init__(json_path, image_folder, tokenizer, cfg, is_train)
+        self.region_mask_type = region_mask_type
+
+    def __getitem__(self, idx):
+        rec = self.data[idx]
+        image = self._load_image(os.path.join(self.image_folder, rec["image"]))
+        proc = self.mapper.transform_image(image)
+        gt, anns, hw = self._record_targets(rec)
+
+        vp_masks = self.mapper.visual_prompts(anns, self.region_mask_type)
+        vp_masks = [self.mapper.transform_mask(m) for m in vp_masks]
+        R = min(len(vp_masks), self.cfg.max_regions)
+        pts = np.zeros((self.cfg.max_regions, self.cfg.num_region_points, 2),
+                       np.float32)
+        region_valid = np.zeros((self.cfg.max_regions,), bool)
+        for i in range(R):
+            pts[i] = ImageMapper.sample_region_points(
+                vp_masks[i], self.cfg.num_region_points, self.rng)
+            region_valid[i] = True
+
+        human, gpt = interactive_prompt(max(R, 1))
+        prompt = build_conversation(human, gpt)
+        input_ids, labels = tokenize_conversation(prompt, self.tokenizer)
+        s = self._splice(input_ids, labels, num_regions=max(R, 1))
+        return {**s.as_dict(), "images": proc.image,
+                "padding_mask": proc.padding_mask,
+                "resized_hw": np.asarray(proc.resized_hw),
+                "original_hw": np.asarray(proc.original_hw),
+                "region_points": pts, "region_valid": region_valid,
+                **self._pad_targets({"gt_classes": gt["gt_classes"][:R],
+                                     "gt_masks": gt["gt_masks"][:R]}),
+                "image_id": rec["new_img_id"],
+                "file_name": rec["image"],
+                "dataset_type": self.dataset_type}
+
+
+class ReferringDataset(InstanceDataset):
+    """RefCOCO_dataset (train_datasets.py:617-698)."""
+
+    dataset_type = "referring_coco"
+
+    def __init__(self, json_path, image_folder, tokenizer, cfg, is_train=True):
+        super().__init__(json_path, image_folder, tokenizer, cfg, is_train)
+
+    def original_gt_mask(self, idx):
+        """Union gt mask decoded at the ORIGINAL (H, W) — the reference's
+        referring/gRefCOCO evals decode annotation RLEs/polygons at original
+        resolution (referring_segmentation.py:252-271), never the padded
+        frame. Host-side only (no static-shape constraint)."""
+        rec = self.data[idx]
+        H = rec["image_info"]["height"]
+        W = rec["image_info"]["width"]
+        gt = np.zeros((H, W), bool)
+        for a in rec["anns"]:
+            seg = a.get("segmentation")
+            if seg is None:
+                continue
+            if isinstance(seg, dict):
+                m = coco_rle.decode(seg)
+            else:
+                m = coco_rle.merge_polygons_to_mask(seg, H, W)
+            gt |= m.astype(bool)
+        return gt
+
+    def __getitem__(self, idx):
+        rec = self.data[idx]
+        image = self._load_image(os.path.join(
+            self.image_folder, rec["image_info"]["file_name"]))
+        proc = self.mapper.transform_image(image)
+        gt, _, _ = self._record_targets(rec)
+
+        instruction = "".join(" {}.".format(s["sent"])
+                              for s in rec["instruction"])
+        human, gpt = referring_prompt()
+        prompt = build_conversation(human, gpt)
+        input_ids, labels = tokenize_conversation(prompt, self.tokenizer)
+        refer_ids = tokenize_referring_sentence(instruction, self.tokenizer)
+        s = self._splice(input_ids, labels, token_refer_id=refer_ids)
+        return {**s.as_dict(), "images": proc.image,
+                "padding_mask": proc.padding_mask,
+                "resized_hw": np.asarray(proc.resized_hw),
+                "original_hw": np.asarray(proc.original_hw),
+                **self._pad_targets({"gt_classes": gt["gt_classes"],
+                                     "gt_masks": gt["gt_masks"]}),
+                "image_id": rec["new_img_id"],
+                "file_name": rec["image_info"]["file_name"],
+                "dataset_type": self.dataset_type}
+
+
+class SemanticDataset(BaseTaskDataset):
+    """COCO_semantic_dataset (train_datasets.py:565-615): semantic label PNG
+    -> one binary gt mask per present class, panoptic-style prompt over the
+    full class list."""
+
+    dataset_type = "semantic_coco"
+
+    def __init__(self, list_json, image_folder, label_folder, tokenizer, cfg,
+                 is_train=True, ignore_label=255, class_names=None):
+        with open(list_json) as f:
+            self.data = json.load(f)
+        self.image_folder = image_folder
+        self.label_folder = label_folder
+        self.ignore_label = ignore_label
+        super().__init__(tokenizer, cfg, class_names=class_names,
+                         is_train=is_train)
+
+    def __getitem__(self, idx):
+        rec = self.data[idx]
+        image = self._load_image(os.path.join(self.image_folder, rec["image"]))
+        proc = self.mapper.transform_image(image)
+        label = np.asarray(Image.open(os.path.join(self.label_folder,
+                                                   rec["label"])))
+        label_t = self.mapper.transform_mask(label.astype(np.uint8))
+        classes = np.unique(label_t)
+        classes = classes[(classes != self.ignore_label)
+                          & (classes < len(self.coco_class_name) - 1)]
+        masks = np.stack([(label_t == c) for c in classes]).astype(np.float32) \
+            if len(classes) else np.zeros((0, *label_t.shape), np.float32)
+
+        K = len(self.coco_class_name)
+        human, gpt = panoptic_prompt(K, task_name="Semantic Segmentation")
+        prompt = build_conversation(human, gpt)
+        input_ids, labels = tokenize_conversation(prompt, self.tokenizer)
+        cls_ids, cls_idx = tokenize_class_names(self.coco_class_name,
+                                                self.tokenizer)
+        s = self._splice(input_ids, labels, class_name_ids=cls_ids,
+                         cls_indices=cls_idx)
+        return {**s.as_dict(), "images": proc.image,
+                "padding_mask": proc.padding_mask,
+                "resized_hw": np.asarray(proc.resized_hw),
+                "original_hw": np.asarray(proc.original_hw),
+                **self._pad_targets({"gt_classes": classes.astype(np.int64),
+                                     "gt_masks": masks}),
+                "image_id": rec.get("image_id", idx),
+                "dataset_type": self.dataset_type,
+                "num_class_names": K}
+
+
+class MMConvDataset(BaseTaskDataset):
+    """MM_Conv_Dataset (train_datasets.py:797-966): LLaVA-1.5 chat data; LLM
+    CE loss only, no mask targets."""
+
+    dataset_type = "mm_conv"
+
+    def __init__(self, json_path, image_folder, tokenizer, cfg, is_train=True):
+        with open(json_path) as f:
+            self.data = json.load(f)
+        self.image_folder = image_folder
+        super().__init__(tokenizer, cfg, is_train=is_train)
+
+    def __getitem__(self, idx):
+        rec = self.data[idx]
+        image = self._load_image(os.path.join(self.image_folder, rec["image"]))
+        proc = self.mapper.transform_image(image)
+        convs = rec["conversations"]
+        conv = conv_llava_phi.copy()
+        role_map = {"human": conv.roles[0], "gpt": conv.roles[1]}
+        for m in convs:
+            conv.append_message(role_map[m["from"]], m["value"])
+        prompt = conv.get_prompt()
+        input_ids, labels = tokenize_conversation(prompt, self.tokenizer)
+        s = self._splice(input_ids, labels)
+        return {**s.as_dict(), "images": proc.image,
+                "padding_mask": proc.padding_mask,
+                "resized_hw": np.asarray(proc.resized_hw),
+                "original_hw": np.asarray(proc.original_hw),
+                "image_id": rec.get("id", idx),
+                "dataset_type": self.dataset_type}
 
 
 class UnifiedTaskSampler:

@@ -17,6 +17,13 @@ Except for SEMANTIC, the mask logits are restored to the original pixel grid
 with interpolation matrices on a fixed "bucket" grid
 (``psalm_tpu_torch/eval/geometry.py``) before the heads run, in f32.
 
+The eval CLIs call ``stage(batch)`` on a ``Prefetcher`` thread and
+``infer(batch, staged=...)`` on theirs, so that the dataset read, the
+collate and the upload of batch i+1 overlap batch i's inference and
+metrics, and
+restore the ground truth with ``restore_map`` / ``restore_masks`` (OpenCV,
+as JAX's runner).
+
 The JAX runner's window-clamp telemetry and radius auto-raise are not
 ported: the port's default sampler is exact and has no radius to raise.
 """
@@ -171,6 +178,22 @@ def _content_hw(batch: Dict[str, np.ndarray], S: int) -> np.ndarray:
     return np.maximum(np.stack([ext(v.any(2)), ext(v.any(1))], -1), 1)
 
 
+def load_eval_model(model_path: str, seg_task: SegTask,
+                    cfg: Optional[PSALMConfig] = None):
+    """(tokenizer, model, cfg) of an eval CLI called without a model: the
+    checkpoint directory through ``load_pretrained_model`` on the card.
+    Stops with an error when the directory holds no tokenizer."""
+    from psalm_tpu_torch.models.builder import load_pretrained_model
+    tokenizer, model, _ = load_pretrained_model(model_path, seg_task=seg_task,
+                                                cfg=cfg, device="cuda")
+    if tokenizer is None:
+        raise SystemExit(
+            f"{model_path} holds no tokenizer that transformers can load: "
+            "the eval CLIs tokenize their prompts with the checkpoint's own "
+            "(or pass tokenizer= to evaluation)")
+    return tokenizer, model, model.cfg
+
+
 class EvalRunner:
     def __init__(self, model, cfg: PSALMConfig, num_class_names=None,
                  is_thing=None, bucket_hw: Optional[Tuple[int, int]] = None):
@@ -196,7 +219,9 @@ class EvalRunner:
         self.bucket_hw = new
 
     def stage(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        """The arrays the model reads, as tensors on the model's device."""
+        """The arrays the model reads, as tensors on the model's device (the
+        ground truth stays on the host: only the metric accumulators read
+        it)."""
         return {k: torch.as_tensor(np.asarray(v)).to(self.device)
                 for k, v in batch.items() if k not in _HOST_ONLY}
 
@@ -279,7 +304,9 @@ class EvalRunner:
                SegTask.REGION: "region"}[task]
         return {key: self._stack(results)}
 
-    def infer(self, batch: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    def infer(self, batch: Dict[str, np.ndarray],
+              staged: Optional[Dict[str, torch.Tensor]] = None
+              ) -> Dict[str, Any]:
         if "original_hw" in batch:
             self._maybe_grow_bucket(batch)
         content = _content_hw(batch, self.cfg.image_size)
@@ -287,7 +314,9 @@ class EvalRunner:
             original = np.asarray(batch["original_hw"]).reshape(-1, 2)
         else:  # the reference's .get fallback: the content extent
             original = content
-        out = self._infer_device(self.stage(batch), content, original)
+        if staged is None:
+            staged = self.stage(batch)
+        out = self._infer_device(staged, content, original)
         out = {k: ({n: t.cpu().numpy() for n, t in v.items()}
                    if isinstance(v, dict) else v.cpu().numpy())
                for k, v in out.items()}
@@ -310,3 +339,65 @@ class EvalRunner:
                 out[key]["masks"] = [x[b, :, :oh[b, 0], :oh[b, 1]]
                                      for b in range(len(x))]
         return out
+
+    # -- host-side geometric restore (ground truth stored at the padded
+    # frame; predictions come back already at original resolution) ----------
+
+    @staticmethod
+    def restore_map(seg: np.ndarray, resized_hw, original_hw,
+                    nearest: bool = True) -> np.ndarray:
+        """Crop the content region and resize back to the original size."""
+        import cv2
+        nh, nw = resized_hw
+        crop = seg[:nh, :nw]
+        interp = cv2.INTER_NEAREST if nearest else cv2.INTER_LINEAR
+        return cv2.resize(np.asarray(crop), (original_hw[1], original_hw[0]),
+                          interpolation=interp)
+
+    @staticmethod
+    def restore_masks(masks: np.ndarray, resized_hw, original_hw) -> np.ndarray:
+        """[Q, S, S] -> [Q, H, W] via per-mask crop + nearest resize
+        (threaded: cv2 releases the GIL)."""
+        from concurrent.futures import ThreadPoolExecutor
+        if len(masks) < 8:
+            return np.stack([EvalRunner.restore_map(
+                m.astype(np.uint8), resized_hw, original_hw) for m in masks])
+        with ThreadPoolExecutor(max_workers=8) as ex:
+            out = list(ex.map(lambda m: EvalRunner.restore_map(
+                m.astype(np.uint8), resized_hw, original_hw), masks))
+        return np.stack(out)
+
+
+class Prefetcher:
+    """Overlap dataset IO/preprocessing with device execution: a background
+    thread keeps ``depth`` ready batches ahead of the consumer. An exception
+    in the producer is raised to the consumer at the batch it broke."""
+
+    def __init__(self, iterator, depth: int = 2):
+        import queue
+        import threading
+        self.q = queue.Queue(maxsize=depth)
+        self._END = object()
+
+        def worker():
+            try:
+                for item in iterator:
+                    self.q.put((item, None))
+            except Exception as e:  # noqa: BLE001 - handed to the consumer
+                self.q.put((None, e))
+            finally:
+                self.q.put((self._END, None))
+
+        self.t = threading.Thread(target=worker, daemon=True)
+        self.t.start()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item, err = self.q.get()
+        if err is not None:
+            raise err
+        if item is self._END:
+            raise StopIteration
+        return item

@@ -136,13 +136,16 @@ def test_image_mapper_equals_original(hw):
     for short, max_size in ((1024, 1024), (800, 1333)):
         assert tmappers.resize_shortest_edge_shape(*hw, short, max_size) == \
             jmappers.resize_shortest_edge_shape(*hw, short, max_size)
-    want = jmappers.ImageMapper(256).transform_image(image)
-    got = tmappers.ImageMapper(256).transform_image(image)
-    assert got.image.dtype == want.image.dtype
-    np.testing.assert_array_equal(got.image, want.image)
-    np.testing.assert_array_equal(got.padding_mask, want.padding_mask)
-    assert (got.resized_hw, got.original_hw, got.scale) == \
-        (want.resized_hw, want.original_hw, want.scale)
+    for device_normalize in (False, True):  # normalized f32, or raw uint8
+        want = jmappers.ImageMapper(256, device_normalize).transform_image(
+            image)
+        got = tmappers.ImageMapper(256, device_normalize).transform_image(
+            image)
+        assert got.image.dtype == want.image.dtype
+        np.testing.assert_array_equal(got.image, want.image)
+        np.testing.assert_array_equal(got.padding_mask, want.padding_mask)
+        assert (got.resized_hw, got.original_hw, got.scale) == \
+            (want.resized_hw, want.original_hw, want.scale)
 
 
 @pytest.mark.parametrize("area", [0, 5, 300, 4000])

@@ -23,7 +23,12 @@ def test_no_jax_behind_the_package():
     for m in ("eval.runner", "serve.model_worker", "models.generation",
               "models.builder", "ops.int4_matvec", "config", "data.splicer",
               "data.datasets", "train.criterion", "train.train_step",
-              "train.train"):
+              "train.train", "native", "data.coco_rle", "data.conversation",
+              "data.tokenization", "data.mappers", "eval.metrics",
+              "eval.artifacts", "eval.panoptic_segmentation",
+              "eval.semantic_segmentation", "eval.instance_segmentation",
+              "eval.referring_segmentation", "eval.region_segmentation",
+              "eval.eval_grefcoco", "eval.cityscapes_instance"):
         assert f"psalm_tpu_torch.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -572,3 +577,25 @@ def test_quant4_checks_its_weight_once_per_buffer(monkeypatch):
     cpu = quant.Quant4Dense(256, 128, storage="pallas")
     cpu(torch.zeros(1, 256))  # the plain version: no weight check
     assert len(checks) == 2 and calls[-1] is False
+
+
+@pytest.mark.gpu
+def test_tiny_clis_on_the_card_match_the_cpu():
+    """The tiny panoptic and instance CLIs with the kernels on the card
+    against the same CLIs with the plain versions on the CPU (chip_smoke.py
+    phase 12's check): the CPU's panoptic PNGs hold segments and the card's
+    agree with them on 99% of pixels, the semantic metrics to 1e-6, ranked
+    instance records item by item where their scores are 1e-3 apart. TF32
+    off, as chip_smoke.py runs it: with the defaults (cuDNN's convolutions
+    in TF32) the instance scores moved past that limit on the H100."""
+    _require_card()
+    import chip_smoke
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        chip_smoke.check_small_clis(torch, np)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
