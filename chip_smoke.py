@@ -87,7 +87,12 @@ Phases, each of which must pass:
                step (24 layers x 6 linears) and 24 K3 per prefill. Then the
                decode step with K4 is held against the packed plain path, and
                prefill and decode are timed at B=1 and B=4 for int4, int8 and
-               the unquantized bf16 model.
+               the unquantized bf16 model. The int4 worker also answers one
+               /worker_segment panoptic request on a seeded 480x640 JPEG
+               over HTTP after a warm-up one (Phi's 2048 rows on the packed
+               plain path), with phase 13's word tokenizer and its class
+               head scaled by 10 as in phases 12 and 13: error_code 0, at
+               least one segment, 6 K1 and 24 K3 launches, no K4; its ms.
   7. tasks   - the semantic, instance, referring and region eval tasks
                (EvalRunner.infer) at the full published width in bf16 with
                Phi's use_flash, as bench.py builds the eval model, on
@@ -139,6 +144,33 @@ Phases, each of which must pass:
                the semantic RLE records, the pkl and txt summaries); img/s,
                and the panoptic CLI's ms an image beside EvalRunner.infer's
                p50 on its first image and phase 5's p50.
+ 13. segment - first SegmentService's three tasks at the tiny config in f32,
+               the card against the CPU (each reply's map on 99% of pixels,
+               the referring score to 1e-3); then a port controller and a
+               port worker on localhost (ModelWorker with one PSALMConfig()
+               bf16 model with use_flash, random weights from a seeded
+               torch.Generator, WordTokenizer) that registers with the
+               controller; the client asks the controller for the worker's
+               address and POSTs /worker_segment (a base64 480x640 JPEG)
+               once per task after a warm-up request per task: panoptic,
+               semantic, referring with a 12-word expression (the class
+               head scaled by 10, so that the panoptic reply must hold
+               segments). The counters,
+               zeroed before the timed requests, must show 6 K1, 24 K3 and
+               24 K5 (causal, Phi padded to 2048) per request; every reply
+               error_code 0, RLEs decoding to 480x640, unique panoptic ids,
+               a finite score; ms per request by task. K5 is held per
+               element on a request's Phi layer-0 q, k, v at L = 2048.
+ 14. davis   - a seeded DAVIS-format tree under build/davis (2 videos of 4
+               JPEG frames at 480x854, 3 objects as RLE first-frame
+               annotations): the DAVIS CLI (eval_davis.evaluation) at the
+               tiny config in f32, the card against the CPU (PNGs agree on
+               99% of pixels, the same frames take the memory, some must);
+               then on one PSALMConfig() bf16 model with use_flash after a
+               warm-up frame: 6 K1, 48 K3 (Swin runs on the frame and on
+               the prompt's frame) and 24 K5 causal launches per frame, the
+               PNGs read back with the DAVIS palette, every index in {0}
+               and the fills; frames/s.
 
 Each path zeroes the launch counters just before its timed run and reads
 them just after. f32 comparisons run with TF32 off. On the line before the
@@ -1468,13 +1500,14 @@ def time_decode(torch, gen, batch):
 
 
 def serving_slice(torch, np, card):
-    """Phase 6; returns the kernels' launches on the serving path."""
+    """Phase 6; returns the kernels' launches on the chat path and on the
+    int4 worker's segment request."""
     import dataclasses
     from psalm_tpu_torch import PSALMConfig
     from psalm_tpu_torch.models.builder import model_from_state_dict
     from psalm_tpu_torch.models.generation import Generator
     from psalm_tpu_torch.models.psalm import PSALM, init_weights_
-    from psalm_tpu_torch.serve.model_worker import ModelWorker
+    from psalm_tpu_torch.serve.model_worker import ModelWorker, make_handler
     base_cfg = PSALMConfig(compute_dtype="bfloat16")
     cfg = base_cfg.replace(phi=dataclasses.replace(base_cfg.phi,
                                                    quant_storage="pallas"))
@@ -1576,6 +1609,39 @@ def serving_slice(torch, np, card):
     if not (torch.isfinite(got).all() and err <= K4_TOL * scale):
         fail(f"K4 decode logits differ from the packed path: {err} vs {scale}")
 
+    # the worker's /worker_segment route on the int4 model: Phi's rows of
+    # the segment prompt take the packed plain path (K4 takes rows <= 16).
+    # Its segmenter takes the word tokenizer, as phase 13's does: the
+    # character tokenizer spreads each of the 134 class names over many
+    # tokens, and no query passed the 0.8 threshold with it.
+    worker.tokenizer = WordTokenizer(cfg.phi.vocab_size)
+    with torch.no_grad():  # so that panoptic queries pass the 0.8 threshold
+        models["int4"].predictor.CLASS_proj.layers[-1].weight.mul_(10.0)
+    srv, url = serve_http(make_handler(worker))
+    request = {"image": jpeg_b64(np, SEGMENT_HW, 6), "task": "panoptic"}
+    try:
+        post_json(url + "/worker_segment", request)  # warm-up
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        reply = post_json(url + "/worker_segment", request)
+        seg_ms = (time.perf_counter() - t0) * 1e3
+        seg_counts = launch_counts()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    seg_expect = expected(K1=cfg.pixel_decoder.transformer_enc_layers,
+                          K3=sum(cfg.swin.depths))
+    what = check_segment_reply(np, "panoptic", reply, SEGMENT_HW)
+    if not reply["segments"]:
+        fail("int4 worker segment panoptic: the reply holds no segment")
+    log(f"int4 worker /worker_segment panoptic on a {SEGMENT_HW[0]}x"
+        f"{SEGMENT_HW[1]} JPEG: {seg_ms:.1f} ms (one request after a warm-up"
+        f" one; Phi's sequence of 2048 on the packed plain path) on {card}; "
+        f"{what}; launches {seg_counts} (expected {seg_expect})")
+    if seg_counts != seg_expect:
+        fail(f"int4 worker segment launches {seg_counts} != {seg_expect}")
+
     del worker, gen, cache, other
     torch.cuda.reset_peak_memory_stats()
     for mode in ("int4", "int8", "bf16"):
@@ -1590,7 +1656,7 @@ def serving_slice(torch, np, card):
                 f"busy {busy:.3f} of the decode steps, on {card}")
     log(f"serve peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
         f"(three models resident)")
-    return launches
+    return {"serve": launches, "serve/segment": seg_counts}
 
 
 # -- phase 12: the eval CLIs ------------------------------------------------
@@ -1728,6 +1794,45 @@ def write_cli_tree(np, root, n_images, hw, n_thing, n_stuff, segments, anns,
     with open(paths["sem_names"], "w") as f:
         f.write("\n".join(f"ade{k:03d} stuff" for k in range(sem_classes)))
     return paths
+
+
+def write_davis_tree(np, root, videos, frames, hw, objects, seed, fills=None):
+    """A DAVIS-2017-format tree from ``seed``: JPEGImages/480p/<video>/
+    <frame>.jpg and davis_val_psalm.json, one record per frame naming the
+    video's first frame and its ``objects`` first-frame annotations
+    (ellipses as RLEs, ``category_id`` = the object's fill, 1, 2, ... or
+    ``fills``). Returns (root, json path)."""
+    from PIL import Image
+    from psalm_tpu_torch.data import coco_rle
+    rng = np.random.default_rng(seed)
+    H, W = hw
+    fills = list(fills or range(1, objects + 1))
+    yy, xx = np.mgrid[:H, :W]
+    records = []
+    for v in range(videos):
+        video = f"video{v:02d}"
+        vdir = os.path.join(root, "JPEGImages", "480p", video)
+        os.makedirs(vdir, exist_ok=True)
+        for f in range(frames):
+            Image.fromarray(rng.integers(0, 256, (H, W, 3), dtype=np.uint8)
+                            ).save(os.path.join(vdir, f"{f:05d}.jpg"))
+        anns = []
+        for fill in fills:
+            cy, cx = rng.uniform(0.2, 0.8, 2) * (H, W)
+            ry, rx = rng.uniform(0.08, 0.25, 2) * (H, W)
+            m = (((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1)
+            rle = coco_rle.encode(m.astype(np.uint8))
+            anns.append({"category_id": int(fill),
+                         "segmentation": dict(rle,
+                                              counts=rle["counts"].decode())})
+        first = f"JPEGImages/480p/{video}/00000.jpg"
+        records += [{"image": f"JPEGImages/480p/{video}/{f:05d}.jpg",
+                     "first_frame_image": first, "first_frame_anns": anns}
+                    for f in range(frames)]
+    path = os.path.join(root, "davis_val_psalm.json")
+    with open(path, "w") as fh:
+        json.dump(records, fh)
+    return root, path
 
 
 # each CLI: (module, task, the flags beside the common ones)
@@ -1960,27 +2065,16 @@ def check_small_clis(torch, np):
     the plain versions on the CPU, same weights, same tree. The class head
     is scaled so that some queries pass the panoptic 0.8 threshold: the
     CPU's PNGs must hold segments, or the comparison would see void alone."""
-    import dataclasses
     import shutil
-    from psalm_tpu_torch import SegTask, tiny_test_config
     from psalm_tpu_torch.data import coco_rle
-    from psalm_tpu_torch.models.psalm import PSALM, init_weights_
     import cv2
-    base = tiny_test_config()
-    cfg = base.replace(phi=dataclasses.replace(base.phi, num_heads=2))
+    cfg = small_cfg()
     root = os.path.join(HERE, "build", "clis_small")
     shutil.rmtree(root, ignore_errors=True)
     paths = write_cli_tree(np, root, 3, (48, 64), n_thing=3, n_stuff=2,
                            segments=4, anns=2, sem_classes=4, seed=13)
     tokenizer = WordTokenizer(cfg.phi.vocab_size)
-    cpu = init_weights_(PSALM(cfg, device="cpu", use_flash=True),
-                        torch.Generator().manual_seed(7))
-    with torch.no_grad():  # sampling offsets beyond the init's +-4 px
-        for layer in cpu.pixel_decoder.transformer.encoder.layers:
-            layer.self_attn.sampling_offsets.bias.mul_(3.0)
-        cpu.predictor.CLASS_proj.layers[-1].weight.mul_(10.0)
-    gpu = PSALM(cfg, device="cuda", use_flash=True)
-    gpu.load_state_dict(cpu.state_dict())
+    cpu, gpu = small_model(torch, cfg, 7)
     for module, task, flags in CLIS[:1] + CLIS[2:3]:
         res = {}
         for dev, model in (("cpu", cpu), ("cuda", gpu)):
@@ -2037,6 +2131,353 @@ def check_small_clis(torch, np):
             what = "ranked items agree"
         log(f"  {module}: {what}; metrics cpu {json.dumps(res['cpu'])} / "
             f"cuda {json.dumps(res['cuda'])}")
+
+
+# -- phases 13 and 14: the segment service and the DAVIS CLI ----------------
+
+SEGMENT_HW = (480, 640)  # bench.py's original geometry
+SEGMENT_WORDS = 12       # words of the referring expression
+DAVIS_VIDEOS, DAVIS_FRAMES = 2, 4
+DAVIS_HW = (480, 854)    # DAVIS-2017's 480p frames
+DAVIS_OBJECTS = 3
+SMALL_AGREE = 0.99       # pixels of a tiny map that the card and CPU share
+
+
+def jpeg_b64(np, hw, seed):
+    """A seeded random JPEG of ``hw``, base64 as a client sends it."""
+    import base64
+    import io
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(np.random.default_rng(seed).integers(
+        0, 256, hw + (3,), dtype=np.uint8)).save(buf, format="JPEG")
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def post_json(url, payload, timeout=600):
+    import urllib.request
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def serve_http(handler):
+    """A ThreadingHTTPServer on a free localhost port, serving on a daemon
+    thread: (server, its URL). The handler may be set later, before the
+    first request."""
+    from http.server import ThreadingHTTPServer
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), handler)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv, f"http://127.0.0.1:{srv.server_port}"
+
+
+def check_segment_reply(np, task, reply, hw):
+    """A /worker_segment reply: error_code 0, the image's size, every RLE
+    decoding to it, unique panoptic ids, a finite referring score."""
+    from psalm_tpu_torch.data import coco_rle
+    if reply.get("error_code") != 0:
+        fail(f"segment {task}: {reply}")
+    if (reply["height"], reply["width"]) != hw:
+        fail(f"segment {task}: reply size {reply['height']}x{reply['width']}")
+    if task == "panoptic":
+        rles = [s["rle"] for s in reply["segments"]]
+        ids = [s["id"] for s in reply["segments"]]
+        if len(set(ids)) != len(ids):
+            fail(f"segment panoptic: repeated ids {ids}")
+        what = f"{len(ids)} segments"
+    elif task == "semantic":
+        rles = [c["rle"] for c in reply["classes"]]
+        what = f"{len(rles)} classes"
+    else:
+        rles = [reply["rle"]]
+        if not (np.isfinite(reply["score"]) and 0 <= reply["score"] <= 1):
+            fail(f"segment referring: score {reply['score']}")
+        what = f"score {reply['score']:.4f}"
+    for rle in rles:
+        if coco_rle.decode(rle).shape != hw:
+            fail(f"segment {task}: an RLE of {rle['size']}")
+    return what + f", {sum(coco_rle.area(r) for r in rles)} pixels"
+
+
+def _reply_map(np, task, reply, hw):
+    """A reply as one map: panoptic ids, semantic classes, the referring
+    mask (-1 where no RLE covers a pixel)."""
+    from psalm_tpu_torch.data import coco_rle
+    out = np.full(hw, -1, np.int64)
+    if task == "referring":
+        out[coco_rle.decode(reply["rle"]).astype(bool)] = 1
+        return out
+    for item in reply["segments" if task == "panoptic" else "classes"]:
+        out[coco_rle.decode(item["rle"]).astype(bool)] = item.get(
+            "id", item["category_id"])
+    return out
+
+
+def small_model(torch, cfg, seed):
+    """The tiny checks' CPU model: random weights, sampling offsets beyond
+    the init's +-4 px, the class head scaled so that panoptic queries pass
+    the 0.8 threshold; and its copy on the card."""
+    from psalm_tpu_torch.models.psalm import PSALM, init_weights_
+    cpu = init_weights_(PSALM(cfg, device="cpu", use_flash=True),
+                        torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        for layer in cpu.pixel_decoder.transformer.encoder.layers:
+            layer.self_attn.sampling_offsets.bias.mul_(3.0)
+        cpu.predictor.CLASS_proj.layers[-1].weight.mul_(10.0)
+    gpu = PSALM(cfg, device="cuda", use_flash=True)
+    gpu.load_state_dict(cpu.state_dict())
+    return cpu, gpu
+
+
+def small_cfg():
+    import dataclasses
+    from psalm_tpu_torch import tiny_test_config
+    base = tiny_test_config()
+    return base.replace(phi=dataclasses.replace(base.phi, num_heads=2))
+
+
+def check_small_segment(torch, np):
+    """Tiny config (Phi use_flash, 2 heads of 32) in f32: SegmentService's
+    three tasks with the kernels on the card against the plain versions on
+    the CPU, same weights, on a seeded 97x131 image: each reply's map
+    agrees on 99% of pixels, the referring score to 1e-3."""
+    from psalm_tpu_torch.serve.segmentation import SegmentService
+    cfg = small_cfg()
+    tokenizer = WordTokenizer(cfg.phi.vocab_size)
+    hw = (97, 131)
+    image = np.random.default_rng(13).integers(0, 256, hw + (3,),
+                                               dtype=np.uint8)
+    names = [f"class {i}" for i in range(cfg.num_classes)] + ["background"]
+    services = {dev: SegmentService(model, tokenizer, cfg, class_names=names,
+                                    is_thing=[True, True, True, False, False],
+                                    max_length=512)
+                for dev, model in zip(("cpu", "cuda"),
+                                      small_model(torch, cfg, 7))}
+    expression = "the person on the left holding a red umbrella"
+    for task in ("panoptic", "semantic", "referring"):
+        kw = {"expression": expression} if task == "referring" else {}
+        replies = {dev: svc.segment(image, task, **kw)
+                   for dev, svc in services.items()}
+        maps = [_reply_map(np, task, replies[dev], hw)
+                for dev in ("cpu", "cuda")]
+        agree = float(np.mean(maps[0] == maps[1]))
+        what = f"maps agree on {agree:.6f}"
+        if task == "panoptic" and not replies["cpu"]["segments"]:
+            fail("small segment panoptic: the CPU's reply holds no segment")
+        if agree < SMALL_AGREE:
+            fail(f"small segment {task}: {what}")
+        if task == "referring":
+            d = abs(replies["cuda"]["score"] - replies["cpu"]["score"])
+            if not d <= 1e-3:
+                fail(f"small segment referring: scores differ by {d}")
+            what += f", scores differ by {d:.2e}"
+        log(f"  {task}: {what}")
+
+
+def segment_slice(torch, np, card, records):
+    """Phase 13: a port controller and a port worker on localhost; the
+    client finds the worker through the controller and POSTs
+    /worker_segment once per task after a warm-up request per task. Returns
+    the launches of the three timed requests. K5 is held against its plain
+    version on Phi's layer-0 q, k, v of a request (L = 2048)."""
+    from psalm_tpu_torch import PSALMConfig
+    from psalm_tpu_torch.models import phi
+    from psalm_tpu_torch.models.psalm import PSALM, init_weights_
+    from psalm_tpu_torch.ops import flash_attention
+    from psalm_tpu_torch.serve import controller
+    from psalm_tpu_torch.serve.model_worker import ModelWorker, make_handler
+    cfg = PSALMConfig(compute_dtype="bfloat16")
+    model = PSALM(cfg, dtype=torch.bfloat16, device="cuda", use_flash=True)
+    init_weights_(model, torch.Generator(device="cuda").manual_seed(13))
+    with torch.no_grad():  # so that panoptic queries pass the 0.8 threshold
+        model.predictor.CLASS_proj.layers[-1].weight.mul_(10.0)
+    model.to(torch.bfloat16)
+    csrv, curl = serve_http(controller.make_handler(controller.Controller()))
+    wsrv, wurl = serve_http(None)  # its handler once the worker exists
+    worker = ModelWorker(curl, wurl, None, "psalm-segment",
+                         image_size=cfg.image_size, device="cuda",
+                         model=model,
+                         tokenizer=WordTokenizer(cfg.phi.vocab_size))
+    wsrv.RequestHandlerClass = make_handler(worker)
+    image = jpeg_b64(np, SEGMENT_HW, 13)
+    expression = " ".join(np.random.default_rng(13).choice(SENTENCE_WORDS,
+                                                           SEGMENT_WORDS))
+    requests = {"panoptic": {}, "semantic": {},
+                "referring": {"expression": expression}}
+    seen, inputs = {}, {}  # Phi's sequence length -> K5 launches, (q, k, v)
+
+    def watched(q, k, v, **kw):
+        seen[q.shape[2]] = seen.get(q.shape[2], 0) + 1
+        if q.shape[2] not in inputs:
+            inputs[q.shape[2]] = (q.clone(), k.clone(), v.clone())
+        return kernel(q, k, v, **kw)
+
+    ms, what = {}, {}
+    try:
+        addr = post_json(curl + "/get_worker_address",
+                         {"model": "psalm-segment"})["address"]
+        if addr != wurl:
+            fail(f"the controller gave {addr!r} for the worker at {wurl}")
+        for task, extra in requests.items():  # each task's runner, warm
+            post_json(addr + "/worker_segment",
+                      {"image": image, "task": task, **extra})
+        kernel, phi.flash_attention = phi.flash_attention, watched
+        torch.cuda.synchronize()
+        zero_counts()
+        for task, extra in requests.items():
+            t0 = time.perf_counter()
+            reply = post_json(addr + "/worker_segment",
+                              {"image": image, "task": task, **extra})
+            ms[task] = (time.perf_counter() - t0) * 1e3
+            what[task] = check_segment_reply(np, task, reply, SEGMENT_HW)
+            if task == "panoptic" and not reply["segments"]:
+                fail("segment panoptic: the reply holds no segment")
+        counts = launch_counts()
+    finally:
+        if phi.flash_attention is watched:
+            phi.flash_attention = kernel
+        for srv in (wsrv, csrv):
+            srv.shutdown()
+            srv.server_close()
+    per_request = expected(K1=cfg.pixel_decoder.transformer_enc_layers,
+                           K3=sum(cfg.swin.depths),
+                           K5_causal=cfg.phi.num_layers)
+    expect = {k: v * len(requests) for k, v in per_request.items()}
+    for task in requests:
+        log(f"segment {task}: {ms[task]:.1f} ms a request (HTTP to the "
+            f"worker, a {SEGMENT_HW[0]}x{SEGMENT_HW[1]} JPEG, after a "
+            f"warm-up request) on {card}; {what[task]}")
+    log(f"segment: launches {counts} (expected {expect}); K5 causal by "
+        f"Phi's sequence length {seen}")
+    if counts != expect:
+        fail(f"segment: kernel launches {counts} != {expect}")
+    if set(seen) != {2048}:
+        fail(f"segment: Phi ran at {sorted(seen)}, not the padded 2048")
+    log("K5 causal on a segment request's own attention inputs (Phi layer 0)")
+    hold_k5(flash_attention, records, *inputs[2048], True,
+            " (phase 13 activations)")
+    del worker, model, inputs
+    gc.collect()
+    return {"segment": counts}
+
+
+def run_davis(model, cfg, tokenizer, paths, out_dir, limit,
+              max_length=2048):
+    """The DAVIS CLI's ``evaluation`` on the tree, its printout kept out of
+    the log: (results, wall seconds)."""
+    import argparse
+    import contextlib
+    import io
+    from psalm_tpu_torch import SegTask
+    from psalm_tpu_torch.eval.eval_davis import evaluation
+    root, json_path = paths
+    args = argparse.Namespace(model_path="", json_path=json_path,
+                              image_folder=root, output_dir=out_dir,
+                              with_memory=True, model_max_length=max_length,
+                              limit=limit)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = evaluation(args, cfg=cfg.replace(seg_task=SegTask.REGION),
+                         tokenizer=tokenizer, model=model)
+    return res, time.perf_counter() - t0
+
+
+def read_davis_pngs(np, paths, out_dir, n):
+    """Every frame's PNG read back: (P mode with the DAVIS palette, the
+    frame's size, indices in {0} and the objects' fills): {frame: array}."""
+    from PIL import Image
+    from psalm_tpu_torch.eval.eval_davis import davis_palette
+    with open(paths[1]) as f:
+        records = json.load(f)[:n]
+    out = {}
+    for rec in records:
+        video = rec["image"].split("/")[-2]
+        name = os.path.splitext(os.path.basename(rec["image"]))[0]
+        img = Image.open(os.path.join(out_dir, video, name + ".png"))
+        pal = bytes(img.getpalette() or b"")
+        arr = np.asarray(img)
+        fills = {int(a["category_id"]) for a in rec["first_frame_anns"]}
+        if img.mode != "P" or pal != davis_palette()[:len(pal)] or not pal:
+            fail(f"davis {video}/{name}.png: mode {img.mode}, not the palette")
+        if arr.shape != DAVIS_HW or not set(np.unique(arr).tolist()) <= \
+                {0} | fills:
+            fail(f"davis {video}/{name}.png: {arr.shape}, indices "
+                 f"{np.unique(arr).tolist()} beside the fills {fills}")
+        out[f"{video}/{name}"] = arr
+    return out
+
+
+def check_small_davis(torch, np, paths):
+    """Tiny config (Phi use_flash, 2 heads of 32) in f32: the DAVIS CLI with
+    the kernels on the card against the plain versions on the CPU, same
+    weights, same tree: every frame's PNG agrees on 99% of pixels and the
+    same frames take their prompts from the memory."""
+    import shutil
+    cfg = small_cfg()
+    tokenizer = WordTokenizer(cfg.phi.vocab_size)
+    root = os.path.join(HERE, "build", "davis_small")
+    shutil.rmtree(root, ignore_errors=True)
+    res, pngs = {}, {}
+    # seed 8: the CPU's run takes the memory in a few frames (seed 7 in none)
+    for dev, model in zip(("cpu", "cuda"), small_model(torch, cfg, 8)):
+        out = os.path.join(root, dev)
+        res[dev] = run_davis(model, cfg, tokenizer, paths, out, 0,
+                             max_length=512)[0]
+        pngs[dev] = read_davis_pngs(np, paths, out, res[dev]["frames"])
+    agree = {k: float(np.mean(pngs["cpu"][k] == pngs["cuda"][k]))
+             for k in pngs["cpu"]}
+    if res["cpu"]["memory"] != res["cuda"]["memory"]:
+        fail(f"small davis: memory {res['cuda']['memory']} on the card, "
+             f"{res['cpu']['memory']} on the CPU")
+    if min(agree.values()) < SMALL_AGREE:
+        fail(f"small davis: PNG agreement {agree}")
+    filled = sum(int((a > 0).sum()) for a in pngs["cpu"].values())
+    if not any(res["cpu"]["memory"]) or not filled:
+        fail(f"small davis: the CPU's run takes the memory in no frame "
+             f"({res['cpu']['memory']}) or segments nothing ({filled})")
+    log(f"  {len(agree)} frames: PNGs agree on {min(agree.values()):.6f} at "
+        f"worst; memory {res['cpu']['memory']} on both; {filled} object "
+        f"pixels on the CPU")
+
+
+def davis_slice(torch, np, card, paths):
+    """Phase 14: the DAVIS CLI at full width; returns the launches of its
+    timed run over every frame of the tree."""
+    import shutil
+    from psalm_tpu_torch import PSALMConfig
+    from psalm_tpu_torch.models.psalm import PSALM, init_weights_
+    cfg = PSALMConfig(compute_dtype="bfloat16")
+    model = PSALM(cfg, dtype=torch.bfloat16, device="cuda", use_flash=True)
+    init_weights_(model, torch.Generator(device="cuda").manual_seed(14))
+    model.to(torch.bfloat16)
+    tokenizer = WordTokenizer(cfg.phi.vocab_size)
+    root = os.path.join(HERE, "build", "davis_out")
+    shutil.rmtree(root, ignore_errors=True)
+    run_davis(model, cfg, tokenizer, paths, os.path.join(root, "warmup"), 1)
+    torch.cuda.synchronize()
+    zero_counts()
+    res, wall = run_davis(model, cfg, tokenizer, paths,
+                          os.path.join(root, "out"), 0)
+    counts = launch_counts()
+    n = res["frames"]
+    # Swin and the projector run twice a frame: the frame and the prompt's
+    expect = expected(K1=cfg.pixel_decoder.transformer_enc_layers * n,
+                      K3=2 * sum(cfg.swin.depths) * n,
+                      K5_causal=cfg.phi.num_layers * n)
+    pngs = read_davis_pngs(np, paths, os.path.join(root, "out"), n)
+    filled = sum(int((a > 0).sum()) for a in pngs.values())
+    log(f"davis: {n / wall:.3f} frames/s ({n} frames of {DAVIS_HW[0]}x"
+        f"{DAVIS_HW[1]}, {DAVIS_VIDEOS} videos, {DAVIS_OBJECTS} objects, "
+        f"{wall / n * 1e3:.1f} ms a frame; the CLI's own figure "
+        f"{res['fps']:.3f}) on {card}; memory {res['memory']}; {len(pngs)} "
+        f"PNGs read back with the palette, {filled} object pixels; launches "
+        f"{counts} (expected {expect})")
+    if counts != expect:
+        fail(f"davis: kernel launches {counts} != {expect}")
+    del model
+    gc.collect()
+    return {"davis": counts}
 
 
 def main():
@@ -2097,7 +2538,7 @@ def main():
     torch.cuda.reset_peak_memory_stats()
 
     log("== eval tasks (PSALMConfig(), bf16, use_flash, EvalRunner.infer)")
-    paths = {"eval": eval_launches, "serve": serve_launches}
+    paths = {"eval": eval_launches, **serve_launches}
     paths.update(task_slice(torch, np, card))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2122,6 +2563,23 @@ def main():
 
     log("== eval CLIs (PSALMConfig(), bf16, use_flash, evaluation(...))")
     paths.update(clis_slice(torch, np, card, timings, records))
+    torch.cuda.empty_cache()
+
+    log("== small segment service (tiny config, f32: card kernels vs CPU plain)")
+    check_small_segment(torch, np)
+
+    log("== segment (a port controller and worker on localhost, "
+        "PSALMConfig(), bf16, use_flash, /worker_segment)")
+    paths.update(segment_slice(torch, np, card, records))
+    torch.cuda.empty_cache()
+
+    log("== davis (tiny config, f32, card vs CPU; then PSALMConfig(), bf16, "
+        "use_flash, eval_davis.evaluation)")
+    davis = write_davis_tree(np, os.path.join(HERE, "build", "davis"),
+                             DAVIS_VIDEOS, DAVIS_FRAMES, DAVIS_HW,
+                             DAVIS_OBJECTS, seed=14)
+    check_small_davis(torch, np, davis)
+    paths.update(davis_slice(torch, np, card, davis))
 
     bad = [m for m in sys.modules if m in ("jax", "flax", "optax")
            or m == "psalm_tpu" or m.startswith("psalm_tpu.")]

@@ -21,9 +21,10 @@ and the Phi linears quantized by ``psalm_tpu/models/quant.py``:
                                           like a Dense kernel
   kernel_q4 int8 [in/2, out]           -> packed [in/2, out], the half-split
   (Quant4Dense, packed storage)           nibble bytes unchanged
+  kernel_q4n int4 [in, out]            -> packed [in/2, out]: row i in the
+  (Quant4Dense, native storage)           low nibble of byte i, row in/2 + i
+                                          in its high one (lossless)
   scale f32 ([out] or [in/g, out])     -> scale, unchanged
-
-(``kernel_q4n``, JAX's native int4 storage, has no counterpart in the port.)
 
 Host numpy only: the arrays may be jax arrays, read with ``np.asarray``.
 """
@@ -80,11 +81,23 @@ def _phi_linear(sd: StateDict, prefix: str, p: Dict[str, Any]) -> None:
         sd[prefix + ".packed"] = _a(p["kernel_q4"])
         sd[prefix + ".scale"] = _a(p["scale"])
     elif "kernel_q4n" in p:
-        raise NotImplementedError(f"{prefix}: native int4 storage is not ported")
+        sd[prefix + ".packed"] = pack_int4(_a(p["kernel_q4n"]))
+        sd[prefix + ".scale"] = _a(p["scale"])
     else:
         sd[prefix + ".weight"] = _a(p["kernel"]).T
     if "bias" in p:
         sd[prefix + ".bias"] = _a(p["bias"])
+
+
+def pack_int4(q: np.ndarray) -> np.ndarray:
+    """int4 values [in, out] (any integer dtype) -> the half-split packed
+    int8 bytes [in/2, out] of ``quantize_kernel_int4``."""
+    q = np.asarray(q).astype(np.int8)
+    if q.shape[0] % 2:
+        raise ValueError(f"int4 kernel {q.shape}: in must be even")
+    half = q.shape[0] // 2
+    return ((q[half:].astype(np.uint8) << 4)
+            | (q[:half].astype(np.uint8) & 0xF)).astype(np.int8)
 
 
 def _phi(sd: StateDict, p: Dict[str, Any], num_layers: int) -> None:

@@ -15,10 +15,13 @@ Counterpart of ``psalm_tpu/models/quant.py``, on the port's state dict:
                (``ops/int4_matvec.py``); every other call, and every call
                with ``storage="packed"``, runs the packed plain math:
                per-group partial dots in the compute dtype, then the scales.
+               ``storage="native"`` (JAX's unpacked ``jnp.int4 [in, out]``
+               ``kernel_q4n``) keeps the same bytes and groups and runs the
+               packed plain math too, never K4: JAX's native branch takes
+               the same per-group dots in the same group order.
 
 The quantizers compute in torch on the tensors' own device (the card, for a
-full-size model) and are byte-identical to the numpy originals. JAX's
-``"native"`` storage (``jnp.int4`` arrays) has no counterpart here.
+full-size model) and are byte-identical to the numpy originals.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ from psalm_tpu_torch.ops.int4_matvec import (check_weight, int4_matvec,
                                              unpack_int4)
 
 GROUP = 64
-STORAGES = ("packed", "pallas")
+STORAGES = ("packed", "native", "pallas")
 
 # the weights that get quantized, psalm_tpu's QUANT_LAYER_NAMES of the Phi
 # stack: model.layers.{i}.self_attn.{q,k,v}_proj/dense and mlp.fc1/fc2
@@ -76,9 +79,7 @@ class Quant4Dense(nn.Module):
                  storage: str = "packed", device=None):
         super().__init__()
         if storage not in STORAGES:
-            raise NotImplementedError(
-                f"int4 storage {storage!r}: the port has {STORAGES} "
-                "(JAX's 'native' jnp.int4 storage is not ported)")
+            raise ValueError(f"int4 storage {storage!r}: takes {STORAGES}")
         if in_features % 2:
             raise ValueError(f"in_features {in_features} must be even")
         self.dtype = dtype
@@ -128,7 +129,7 @@ class Quant4Dense(nn.Module):
                             self.packed, self.scale, self.group,
                             weight_checked=self._weight_checked(x.device))
             y = y.reshape(*lead, self.out_features).to(dt)
-        else:  # prefill-shaped calls, and storage "packed"
+        else:  # prefill-shaped calls, and storages "packed" and "native"
             y = self._packed_math(x.to(dt))
         if self.bias is not None:
             y = y + self.bias.to(dt)
@@ -219,10 +220,14 @@ def quantize_phi_int8(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return _quantize_phi(sd, 8)
 
 
-def quantize_phi_int4(sd: Dict[str, torch.Tensor],
-                      group: int = GROUP) -> Dict[str, torch.Tensor]:
+def quantize_phi_int4(sd: Dict[str, torch.Tensor], group: int = GROUP,
+                      storage: str = "packed") -> Dict[str, torch.Tensor]:
     """The port's state dict with every Phi linear weight replaced by the
     ``packed`` int4 bytes and their group ``scale`` (``psalm_tpu``'s
-    ``quantize_phi_int4`` with the default packed storage), on the tensors'
-    device."""
+    ``quantize_phi_int4``), on the tensors' device. ``storage`` is taken
+    for JAX's signature and is only checked: it selects nothing, since the
+    port keeps the same bytes for every storage (JAX's ``"native"``
+    ``kernel_q4n`` holds the same values unpacked)."""
+    if storage not in STORAGES:
+        raise ValueError(f"int4 storage {storage!r}: takes {STORAGES}")
     return _quantize_phi(sd, 4, group)

@@ -1,5 +1,5 @@
 """Model worker: loads PSALM, registers with the controller, heartbeats,
-and serves streaming chat generation.
+serves streaming chat generation and segmentation requests.
 
 Counterpart of ``psalm_tpu/serve/model_worker.py`` (behavioral spec:
 psalm/serve/model_worker.py, ModelWorker :44, register/heartbeat :74-106,
@@ -9,8 +9,9 @@ bf16 on ``device`` (the card by default), optionally with int8 or int4 Phi
 linears, and concurrent requests that share a padded prompt length decode
 as one batch (``serve/batching.py``).
 
-``/worker_segment`` (the JAX worker's ``SegmentService``) waits for the port
-of the other eval families and answers 404 until then.
+POST ``/worker_segment`` runs the mask heads (panoptic, semantic or
+referring, ``serve/segmentation.py``) on the same model and returns COCO
+RLEs in the image's own geometry.
 """
 
 from __future__ import annotations
@@ -107,6 +108,42 @@ class ModelWorker:
         return {"model_names": [self.model_name], "speed": 1,
                 "queue_length": self.queue_length}
 
+    # -- segmentation ---------------------------------------------------------
+
+    @property
+    def segmenter(self):
+        if not hasattr(self, "_segmenter"):
+            from psalm_tpu_torch.serve.segmentation import SegmentService
+            self._segmenter = SegmentService(self.model, self.tokenizer,
+                                             self.model.cfg)
+        return self._segmenter
+
+    def segment(self, params):
+        """params: {image: base64, task: panoptic|semantic|referring,
+        expression?: str} -> masks as COCO RLEs (original geometry)."""
+        import base64
+        import io
+        from PIL import Image
+        if not params.get("image"):
+            return {"error_code": 1, "text": "segment requires 'image'"}
+        try:
+            img = Image.open(io.BytesIO(base64.b64decode(params["image"])))
+            image = np.asarray(img.convert("RGB"))
+        except Exception as e:  # noqa: BLE001 - bad base64 or not an image
+            return {"error_code": 1,
+                    "text": f"could not decode 'image': {e}"}
+        task = params.get("task", "panoptic")
+        with self.semaphore:
+            self.queue_length += 1
+            try:
+                out = self.segmenter.segment(
+                    image, task, expression=params.get("expression"))
+                return {"error_code": 0, **out}
+            except ValueError as e:
+                return {"error_code": 1, "text": str(e)}
+            finally:
+                self.queue_length -= 1
+
     # -- generation ------------------------------------------------------------
 
     def generate_stream(self, params):
@@ -174,6 +211,13 @@ def make_handler(worker: ModelWorker):
                 for chunk in worker.generate_stream(params):
                     self.wfile.write(chunk)
                     self.wfile.flush()
+            elif self.path == "/worker_segment":
+                body = json.dumps(worker.segment(self._read())).encode()
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
             elif self.path == "/worker_get_status":
                 body = json.dumps(worker.get_status()).encode()
                 self.send_response(200)
@@ -181,7 +225,7 @@ def make_handler(worker: ModelWorker):
                 self.send_header("Content-Length", str(len(body)))
                 self.end_headers()
                 self.wfile.write(body)
-            else:  # includes /worker_segment, not ported yet
+            else:
                 self.send_response(404)
                 self.end_headers()
 

@@ -28,7 +28,11 @@ def test_no_jax_behind_the_package():
               "eval.artifacts", "eval.panoptic_segmentation",
               "eval.semantic_segmentation", "eval.instance_segmentation",
               "eval.referring_segmentation", "eval.region_segmentation",
-              "eval.eval_grefcoco", "eval.cityscapes_instance"):
+              "eval.eval_grefcoco", "eval.cityscapes_instance",
+              "eval.eval_davis", "serve.segmentation", "serve.controller",
+              "serve.web_server", "serve.cli", "serve.register_worker",
+              "serve.moderation", "serve.test_message",
+              "checkpoint.weight_tools", "checkpoint.from_jax"):
         assert f"psalm_tpu_torch.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -590,12 +594,41 @@ def test_tiny_clis_on_the_card_match_the_cpu():
     in TF32) the instance scores moved past that limit on the H100."""
     _require_card()
     import chip_smoke
+    _tf32_off(lambda: chip_smoke.check_small_clis(torch, np))
+
+
+def _tf32_off(check):
+    """``check`` with TF32 off, as chip_smoke.py runs it."""
     flags = (torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
-        chip_smoke.check_small_clis(torch, np)
+        check()
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = flags
+
+
+@pytest.mark.gpu
+def test_tiny_segment_service_on_the_card_matches_the_cpu():
+    """chip_smoke.py phase 13's tiny check: SegmentService's panoptic,
+    semantic and referring replies with the kernels on the card against the
+    plain versions on the CPU agree on 99% of pixels, the referring score
+    to 1e-3."""
+    _require_card()
+    import chip_smoke
+    _tf32_off(lambda: chip_smoke.check_small_segment(torch, np))
+
+
+@pytest.mark.gpu
+def test_tiny_davis_on_the_card_matches_the_cpu(tmp_path):
+    """chip_smoke.py phase 14's tiny check on its tree: the DAVIS CLI's PNGs
+    on the card agree with the CPU's on 99% of pixels, and the same frames
+    take the memory."""
+    _require_card()
+    import chip_smoke
+    paths = chip_smoke.write_davis_tree(
+        np, str(tmp_path), chip_smoke.DAVIS_VIDEOS, chip_smoke.DAVIS_FRAMES,
+        chip_smoke.DAVIS_HW, chip_smoke.DAVIS_OBJECTS, seed=14)
+    _tf32_off(lambda: chip_smoke.check_small_davis(torch, np, paths))

@@ -1,11 +1,13 @@
 """The port's weight quantization and K4's plain version against psalm_tpu
 on the CPU: the quantizers byte for byte, ``int4_matvec_ref`` exactly on the
 layout cases of tests/test_int4_matvec.py and within that file's tolerance on
-random values, the quantized layers, and a quantized Phi carried across by
-``from_jax``.
+random values, the quantized layers (JAX's ``"native"`` ``jnp.int4``
+storage among them, carried across in the packed bytes), and a quantized
+Phi carried across by ``from_jax``.
 
 Tolerances: the layers compute the same f32 products as JAX's ``"packed"``
-path in another summation order, so 1e-5 of the output's magnitude; JAX's
+and ``"native"`` paths (the port runs both storages through the packed
+math) in another summation order, so 1e-5 of the output's magnitude; JAX's
 ``"pallas"`` storage runs its interpret-mode dots at bf16 precision, so
 against it the tolerance of tests/test_quant.py:154-155 (rtol 2e-2, atol
 2e-3); a whole quantized Phi 1e-4 of its output's magnitude, as the float
@@ -28,7 +30,8 @@ from psalm_tpu.models import quant as jquant
 from psalm_tpu.models.phi import PhiModel as JPhiModel
 from psalm_tpu.ops import int4_matvec as jk4
 from psalm_tpu_torch import config as tconfig
-from psalm_tpu_torch.checkpoint.from_jax import jax_to_torch_state_dict
+from psalm_tpu_torch.checkpoint.from_jax import (jax_to_torch_state_dict,
+                                                 pack_int4)
 from psalm_tpu_torch.models import quant
 from psalm_tpu_torch.models.psalm import PSALM
 from psalm_tpu_torch.ops import int4_matvec as k4
@@ -197,8 +200,13 @@ def test_quant4_dense_matches_jax(layer_params, storage):
 
 
 def test_native_storage_and_lora_raise():
-    with pytest.raises(NotImplementedError, match="native"):
-        quant.Quant4Dense(IN_F, OUT_F, storage="native")
+    """Storage "native" is ported (the layer builds; an unknown storage
+    raises, in the layer and in the quantizer); LoRA is not."""
+    assert quant.Quant4Dense(IN_F, OUT_F, storage="native").storage == "native"
+    with pytest.raises(ValueError, match="int4 storage"):
+        quant.Quant4Dense(IN_F, OUT_F, storage="nibbles")
+    with pytest.raises(ValueError, match="int4 storage"):
+        quant.quantize_phi_int4({}, storage="nibbles")
     cfg = tconfig.PhiConfig(hidden_size=64, num_heads=4, lora_rank=4)
     with pytest.raises(NotImplementedError, match="LoRA"):
         quant.make_dense(cfg, 64, 64)
@@ -249,6 +257,78 @@ def test_quantized_phi_matches_jax(tiny_variables, bits):
     embeds = rng.standard_normal((B, L, cfg.phi.hidden_size)).astype(np.float32)
     mask = np.ones((B, L), bool)
     mask[1, 17:] = False
+    want, _ = JPhiModel(qcfg.phi).apply(
+        {"params": jax.tree.map(jnp.asarray, qvars["params"]["phi"]["model"])},
+        jnp.asarray(embeds), jnp.asarray(mask))
+    with torch.no_grad():
+        got = port.model(torch.from_numpy(embeds), torch.from_numpy(mask))
+    assert_close_rel(got.numpy(), want)
+
+
+@pytest.mark.parametrize("shape,group", [((256, 128), 64), ((96, 40), 64)])
+def test_native_kernel_packs_to_the_packed_bytes(shape, group):
+    """JAX's unpacked int4 kernel, packed by ``from_jax``, is the packed
+    storage's bytes: the same values, no loss."""
+    k = _kernel(shape, 4)
+    q4n, nscale = jquant.quantize_kernel_int4_native(k, group)
+    packed, scale = jquant.quantize_kernel_int4(k, group)
+    assert pack_int4(q4n).tobytes() == packed.tobytes()
+    assert nscale.tobytes() == scale.tobytes()
+    low, high = k4.unpack_int4(torch.from_numpy(pack_int4(q4n)))
+    np.testing.assert_array_equal(torch.cat([low, high]).numpy(),
+                                  np.asarray(q4n).astype(np.int8))
+
+
+def test_quant4_native_matches_jax(layer_params, monkeypatch):
+    """The port's "native" layer against JAX's ``Quant4Dense(storage=
+    "native")`` (1e-5 of the output's magnitude), at every row count and
+    on no path through K4 or its plain version."""
+    k, bias = layer_params
+    q4n, scale = jquant.quantize_kernel_int4_native(k, 64)
+    params = {"params": {"kernel_q4n": q4n, "scale": jnp.asarray(scale),
+                         "bias": jnp.asarray(bias)}}
+    jn = jquant.Quant4Dense(OUT_F, group=64, dtype=jnp.float32,
+                            storage="native")
+    td = quant.Quant4Dense(IN_F, OUT_F, storage="native")
+    td.load_state_dict({"packed": torch.from_numpy(pack_int4(q4n)),
+                        "scale": torch.from_numpy(scale),
+                        "bias": torch.from_numpy(bias)})
+
+    def refuse(*a, **kw):
+        raise AssertionError("native storage reached int4_matvec")
+
+    monkeypatch.setattr(quant, "int4_matvec", refuse)
+    for x in _inputs(5):
+        with torch.no_grad():
+            got = td(torch.from_numpy(x)).numpy()
+        assert got.shape == x.shape[:-1] + (OUT_F,)
+        assert_close_rel(got, jn.apply(params, jnp.asarray(x)), rel=1e-5)
+
+
+def test_native_quantized_phi_matches_jax(tiny_variables):
+    """JAX's Phi quantized to native int4 storage, carried across by
+    ``from_jax`` into a port model with ``quant_storage="native"``: the
+    same bytes as the port's own quantizer, and the Phi's output within
+    1e-4 of its magnitude."""
+    cfg, variables = tiny_variables
+    qvars = jquant.quantize_phi_int4(variables, storage="native")
+    qcfg = cfg.replace(phi=dataclasses.replace(cfg.phi, quant_bits=4,
+                                               quant_storage="native"))
+    sd = jax_to_torch_state_dict(qvars, qcfg)
+    own = quant.quantize_phi_int4(
+        {k: torch.from_numpy(np.array(v)) for k, v in
+         jax_to_torch_state_dict(variables, cfg).items()}, storage="native")
+    assert sorted(own) == sorted(sd)
+    for key, w in sd.items():
+        assert own[key].numpy().tobytes() == np.ascontiguousarray(w).tobytes()
+    tcfg = tconfig.config_from_json(tconfig.config_to_json(qcfg))
+    port = load_port(PSALM(tcfg, device="cpu"), sd)
+    layer = port.model.layers[0].mlp.fc1
+    assert isinstance(layer, quant.Quant4Dense) and layer.storage == "native"
+    rng = np.random.default_rng(6)
+    embeds = rng.standard_normal((2, 20, cfg.phi.hidden_size)).astype(np.float32)
+    mask = np.ones((2, 20), bool)
+    mask[0, 13:] = False
     want, _ = JPhiModel(qcfg.phi).apply(
         {"params": jax.tree.map(jnp.asarray, qvars["params"]["phi"]["model"])},
         jnp.asarray(embeds), jnp.asarray(mask))

@@ -166,8 +166,12 @@ def test_worker_stream_and_status(worker):
     status = json.loads(_post(base + "/worker_get_status", {}))
     assert status == {"model_names": ["psalm-test"], "speed": 1,
                       "queue_length": 0}
+    # /worker_segment answers (tests/test_torch_segment.py drives it); an
+    # unknown route is a 404
+    assert json.loads(_post(base + "/worker_segment", {"task": "panoptic"})) \
+        == {"error_code": 1, "text": "segment requires 'image'"}
     with pytest.raises(urllib.error.HTTPError, match="404"):
-        _post(base + "/worker_segment", {"task": "panoptic"})
+        _post(base + "/worker_chat", {})
 
 
 @pytest.fixture(scope="module")
