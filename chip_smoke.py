@@ -45,6 +45,14 @@ Phases, each of which must pass:
                     number n, max(1e-5, 2 (n + 2) 2^-24) (rtol 2^-7 for
                     bf16 d value and d attn, which are rounded once to
                     bf16; 1e-5 else);
+                 K3 backward: each Swin-B stage of a 1024^2 image, with
+                    and without the shift mask, bf16 and f32; against
+                    autograd through the plain window attention; every
+                    element of d qkv and d bias within 2^-7 |want| + 2^-8 M
+                    + 1e-5 in bf16 (M: the magnitude of the products whose
+                    rounded operand may fall the other way, dP = dO v^T
+                    and P) or 1e-5 |want| + 1e-5 M in f32; library: SDPA's
+                    backward with a float mask that needs its gradient;
                  K5 backward: causal at L=640 (32 x 64), non-causal at
                     S=21504 with 2 x 128 (the dense training shape) and 8 x
                     32, bf16; against the plain chunked backward on the
@@ -171,6 +179,34 @@ Phases, each of which must pass:
                the prompt's frame) and 24 K5 causal launches per frame, the
                PNGs read back with the DAVIS palette, every index in {0}
                and the fills; frames/s.
+ 15. train cli - first three tiny card-vs-CPU checks in f32: the training
+               CLI (train.py::main) on a small tree, two tower-training
+               steps (PSALM(train_backbone=True), the drop path on fixed
+               draws) and QLoRA steps of a tiny Phi, losses (and logits)
+               within 1e-3. Then main at the full published width from a
+               model directory of seeded random weights (bf16 on disk, f32
+               parameters, bf16 compute) on a COCO-format tree under
+               build/train_cli (phase 12's writer, with its train2017
+               split, and a LLaVA-format chat JSON): panoptic, region,
+               referring and mm_conv batches in turn (--data_ratio
+               1||1||1||1), batch 1, 2 loader threads, TensorBoard
+               scalars, a profiler trace of two steps per call; 4 steps,
+               then a second main that resumes at step 4 and goes to 6.
+               Every logged loss finite and positive, one checkpoint left
+               after each call, the scalars read back equal to
+               train_log.jsonl, a trace names K1, K2 and K3; step ms by
+               dataset type, launches a step, peak GiB.
+ 16. train backbone - Trainer.step of PSALM(train_backbone=True) at the
+               full published width (deformable, drop path 0-0.3): 1
+               warm-up and 3 timed steps, 12 K1, 6 K2, 24 K3 and 24 K3
+               backward launches a step; the tower's weights move after
+               the second update, its gradients finite; K3's backward held
+               per element on the warm-up step's own stage-0 inputs.
+ 17. qlora   - Phi-1.5 at full width with rank-64 adapters (alpha 16) on
+               the int8 base: 3 train_steps under psalm_finetune_optimizer;
+               every int8 base tensor bit for bit unchanged, every B
+               moved; merge_lora's bf16 Phi gives logits within 5e-2 of
+               the largest adapted logit.
 
 Each path zeroes the launch counters just before its timed run and reads
 them just after. f32 comparisons run with TF32 off. On the line before the
@@ -215,6 +251,15 @@ K2_LIMITS = {True: "2^-7 |want| + c M, c = max(1e-5, 2 (n + 2) 2^-24)",
 # swin_attention.window_attention_limit, M = P|v| from the twin's P
 K3_LIMITS = {"bfloat16": "2^-7 |want| + 2^-8 M + 1e-5, M = P|v|",
              "float32": "1e-5 |want| + 1e-5 M, M = P|v|"}
+# swin_attention.window_attention_bwd_limit, M from
+# window_attention_bwd_magnitude (M dS = P (|dP| + rowsum(P |dP|)))
+K3_BWD_LIMITS = {
+    "bfloat16": "2^-7 |want| + 2^-8 M + 1e-5, M = scale M dS |k|, "
+                "M dS^T |q scale|, P^T |dO|, sum_w M dS",
+    "float32": "1e-5 |want| + 1e-5 M, M = scale M dS |k|, M dS^T |q scale|, "
+               "P^T |dO|, sum_w M dS"}
+# Swin-B's stages at 1024^2 (feature side, channels, heads), window 12
+SWIN_B_STAGES = ((256, 128, 4), (128, 256, 8), (64, 512, 16), (32, 1024, 32))
 K4_SHAPES = ((2048, 2048, "q/k/v/dense"), (2048, 8192, "fc1"),
              (8192, 2048, "fc2"))
 # the eval tasks' slice
@@ -247,6 +292,10 @@ SOURCES = {
     "K5 backward non-causal": (
         "psalm_tpu_torch/csrc/flash_attention_bwd.cu",
         "jax/experimental/pallas/ops/tpu/flash_attention.py:1287"),
+    # the custom VJP of the Swin op (_op_bwd; _op_nomask_bwd :157): jax.vjp
+    # of _xla_reference, by recompute
+    "K3 backward": ("psalm_tpu_torch/csrc/swin_attention_bwd.cu",
+                    "psalm_tpu/ops/swin_attention_pallas.py:137"),
 }
 
 
@@ -257,6 +306,7 @@ def launch_counts():
     fa = flash_attention
     return {"K1": msdeform.LAUNCHES, "K2": msdeform.BWD_LAUNCHES,
             "K3": swin_attention.LAUNCHES, "K4": int4_matvec.LAUNCHES,
+            "K3 backward": swin_attention.BWD_LAUNCHES,
             "K5 causal": fa.CAUSAL_LAUNCHES,
             "K5 non-causal": fa.LAUNCHES - fa.CAUSAL_LAUNCHES,
             "K5 backward causal": fa.BWD_CAUSAL_LAUNCHES,
@@ -275,7 +325,8 @@ def zero_counts():
     from psalm_tpu_torch.ops import (flash_attention, int4_matvec, msdeform,
                                      swin_attention)
     msdeform.LAUNCHES = msdeform.BWD_LAUNCHES = 0
-    swin_attention.LAUNCHES = int4_matvec.LAUNCHES = 0
+    swin_attention.LAUNCHES = swin_attention.BWD_LAUNCHES = 0
+    int4_matvec.LAUNCHES = 0
     flash_attention.LAUNCHES = flash_attention.CAUSAL_LAUNCHES = 0
     flash_attention.BWD_LAUNCHES = flash_attention.BWD_CAUSAL_LAUNCHES = 0
 
@@ -505,8 +556,7 @@ def _check_k3(torch, swin_attention, records):
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(3)
     ws, N = 12, 144
-    for stage, (res, C, h) in enumerate(((256, 128, 4), (128, 256, 8),
-                                         (64, 512, 16), (32, 1024, 32))):
+    for stage, (res, C, h) in enumerate(SWIN_B_STAGES):
         Hp = -(-res // ws) * ws
         nW = (Hp // ws) ** 2
         hd = C // h
@@ -544,6 +594,95 @@ def _check_k3(torch, swin_attention, records):
                            q, k, v, attn_mask=am, scale=hd ** -0.5),
                        bound(nbytes, flops, dtype_name(dtype)))
                 records[-1].update(limit=formula, worst_of_limit=worst)
+
+
+def check_k3_bwd(torch, swin_attention, records, stages=SWIN_B_STAGES):
+    """K3's backward at each Swin-B stage of a 1024^2 image, with and
+    without the shift mask, bf16 and f32: every element of d qkv and d bias
+    within ``window_attention_bwd_limit`` of the twin (autograd through
+    ``window_attention_ref``, its bf16 products summed in f32)."""
+    matmul = torch.backends.cuda.matmul
+    reduced = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        _check_k3_bwd(torch, swin_attention, records, stages)
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = reduced
+
+
+def hold_k3_bwd(torch, swin_attention, name, args, dout):
+    """d qkv and d bias of the kernel against the twin's on ``args`` (qkv,
+    bias, mask, heads, scale); returns (max |err| of d qkv, its largest
+    limit, the worst share of the limit by output)."""
+    got = swin_attention.window_attention_bwd(*args, dout)
+    want = swin_attention.window_attention_bwd_ref(*args, dout)
+    mags = swin_attention.window_attention_bwd_magnitude(*args, dout)
+    torch.cuda.synchronize()
+    formula = K3_BWD_LIMITS[dtype_name(args[0].dtype)]
+    held = {}
+    for what, a, b, mag in zip(("d_qkv", "d_bias"), got, want, mags):
+        limit = swin_attention.window_attention_bwd_limit(b, mag,
+                                                          args[0].dtype)
+        held[what] = hold(f"{name} {what}", a, b, limit, formula)
+    return held["d_qkv"][0], held["d_qkv"][1], {k: v[2] for k, v in
+                                                held.items()}
+
+
+def _check_k3_bwd(torch, swin_attention, records, stages):
+    import torch.nn.functional as F
+    from psalm_tpu_torch.models.swin import shift_attn_mask
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(7)
+    ws, N = 12, 144
+    for stage, (res, C, h) in enumerate(stages):
+        Hp = -(-res // ws) * ws
+        nW = (Hp // ws) ** 2
+        hd = C // h
+        qkv32 = torch.randn(nW, N, 3 * C, generator=g, device=dev)
+        dout32 = torch.randn(nW, N, C, generator=g, device=dev)
+        bias = torch.randn(h, N, N, generator=g, device=dev)
+        mask = torch.from_numpy(shift_attn_mask(Hp, Hp, ws, ws // 2)).to(dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            qkv = qkv32.to(dtype).contiguous()
+            dout = dout32.to(dtype).contiguous()
+            for m in (None, mask):
+                args = (qkv, bias, m, h, hd ** -0.5)
+                name = (f"K3 backward window_attention_bwd {dtype_name(dtype)}"
+                        f" stage{stage} Bn={nW} C={C} h={h} "
+                        f"{'shift-mask' if m is not None else 'no-mask'}")
+                err, tol, worst = hold_k3_bwd(torch, swin_attention, name,
+                                              args, dout)
+                # the library: SDPA's backward with a float mask that needs
+                # its gradient (bias + shift mask, one [N, N] per window)
+                q, k, v = (t.reshape(nW, N, h, hd).transpose(1, 2)
+                           .detach().clone().requires_grad_()
+                           for t in qkv.split(C, dim=-1))
+                am = (bias[None] if m is None else bias[None] + m[:, None])
+                am = am.expand(nW, h, N, N).to(dtype).contiguous() \
+                    .requires_grad_()
+                ref_out = F.scaled_dot_product_attention(q, k, v, attn_mask=am,
+                                                         scale=hd ** -0.5)
+                do4 = dout.reshape(nW, N, h, hd).transpose(1, 2)
+
+                def library():
+                    torch.autograd.grad(ref_out, (q, k, v, am), do4,
+                                        retain_graph=True)
+
+                elt = qkv.element_size()
+                # read qkv, dO, bias (and mask), write d qkv and d bias; five
+                # [N, N] x hd products a (window, head)
+                nbytes = (2 * qkv.numel() + dout.numel()) * elt \
+                    + 2 * bias.numel() * 4 \
+                    + (m.numel() * 4 if m is not None else 0)
+                flops = 10 * nW * h * N * N * hd
+                record(records, "K3 backward", name, err, tol,
+                       lambda: swin_attention.window_attention_bwd(*args, dout),
+                       lambda: swin_attention.window_attention_bwd_ref(*args,
+                                                                       dout),
+                       library, bound(nbytes, flops, dtype_name(dtype)))
+                records[-1].update(limit=K3_BWD_LIMITS[dtype_name(dtype)],
+                                   worst_of_limit=worst)
+                del ref_out, q, k, v, am
 
 
 def dequant_int4(torch, packed, scale, group):
@@ -1267,15 +1406,20 @@ def train_args(**kw):
     return argparse.Namespace(**base)
 
 
-def fixed_draws(np, cfg, B):
-    """One U[0, 1) array per point-draw shape of the criterion, the same on
-    every device and step (numpy, seed 11)."""
-    c = cfg.loss
-    P = c.train_num_points
-    rng = np.random.default_rng(11)
-    return {s: rng.uniform(size=s).astype(np.float32)
-            for s in ((B, P, 2), (B, int(P * c.oversample_ratio), 2),
-                      (B, P - int(c.importance_sample_ratio * P), 2))}
+class FixedDraws:
+    """Point and drop-path draws that are the same numbers on every device:
+    one U[0, 1) array per shape (numpy, seed 11), moved to the generator's
+    device."""
+
+    def __init__(self, np, torch):
+        self.np, self.torch, self.draws = np, torch, {}
+
+    def __call__(self, generator, shape):
+        shape = tuple(shape)
+        if shape not in self.draws:
+            rng = self.np.random.default_rng([11, *shape])
+            self.draws[shape] = rng.uniform(size=shape).astype(self.np.float32)
+        return self.torch.from_numpy(self.draws[shape]).to(generator.device)
 
 
 def train_small(torch, np):
@@ -1298,7 +1442,7 @@ def train_small(torch, np):
                                       num_samples=2, num_masks=3,
                                       valid_masks=2, seed=3)
         batch = collate([ds[0], ds[1]])
-        draws = fixed_draws(np, cfg, 2)
+        draws = FixedDraws(np, torch)
         cpu = init_weights_(PSALM(cfg, device="cpu", use_flash=flash,
                                   remat=True), torch.Generator().manual_seed(9))
         with torch.no_grad():  # sampling offsets beyond the init's +-4 px
@@ -1312,7 +1456,7 @@ def train_small(torch, np):
             trainer = Trainer(train_args(bf16=False, warmup_ratio=0.1,
                                          num_train_steps=10), cfg,
                               model=model, device=dev,
-                              uniform_fn=lambda _, shape: draws[tuple(shape)])
+                              uniform_fn=draws)
             zero_counts()
             runs[dev] = ([{k: float(v) for k, v in trainer.step(batch).items()}
                           for _ in range(steps)], launch_counts())
@@ -2480,6 +2624,619 @@ def davis_slice(torch, np, card, paths):
     return {"davis": counts}
 
 
+# -- training entry point, tower training and QLoRA (phases 15-17) ---------
+
+# the logged values of train_log.jsonl (and the TensorBoard tags)
+TRAIN_LOGGED = ("loss_mask", "loss_dice", "loss_SEG_class",
+                "loss_class_name_class", "loss_region_class", "loss_llm",
+                "loss", "grad_norm")
+# the training CLI: the first main call's steps, then the resumed call's
+CLI_TRAIN_STEPS = (4, 6)
+CLI_PROFILE = ("1,2", "4,5")  # each call's traced steps
+LORA_RANK, LORA_ALPHA, LORA_LR, LORA_STEPS, LORA_LEN = 64, 16.0, 1e-2, 3, 512
+# merged bf16 Phi against the adapted (QLoRA) one, x max |logit|: bf16
+# weights and activations through 24 layers, as K4_TOL for the decode step
+LORA_MERGE_TOL = 5e-2
+# the kernels' names in a CUDA trace: K1, K2, K3 (and K3's backward)
+TRACE_NAMES = {"K1": "msdeform_fwd", "K2": "msdeform_bwd",
+               "K3": "window_attention_tc_kernel"}
+
+
+def write_train_tree(np, root, n_images, hw, n_thing, n_stuff, seed,
+                     segments=CLI_SEGMENTS, anns=CLI_ANNS):
+    """``write_cli_tree``'s COCO tree with its val2017 split copied as the
+    train2017 split the training datasets read, and a LLaVA-format chat
+    JSON (mm_conv) of one round an image. Returns the paths and the chat
+    JSON's."""
+    import shutil
+    paths = write_cli_tree(np, root, n_images, hw, n_thing, n_stuff,
+                           segments, anns, SEM_CLASSES, seed)
+    coco = paths["root"]
+    for d in ("", "panoptic_"):
+        shutil.copytree(os.path.join(coco, f"{d}val2017"),
+                        os.path.join(coco, f"{d}train2017"),
+                        dirs_exist_ok=True)
+    shutil.copy(os.path.join(coco, "annotations/panoptic_val2017.json"),
+                os.path.join(coco, "annotations/panoptic_train2017.json"))
+    rng = np.random.default_rng(seed + 1)
+
+    def words(n):
+        return " ".join(rng.choice(SENTENCE_WORDS, n))
+
+    # one round: the label masking's per-round token counts assume a BPE
+    # tokenizer past the first round (WordTokenizer's would mask it all)
+    chats = [{"id": i, "image": f"{i:012d}.jpg", "conversations": [
+        {"from": "human", "value": f"<image>\n{words(8)}?"},
+        {"from": "gpt", "value": words(24) + "."}]} for i in range(n_images)]
+    paths["mm_conv"] = os.path.join(root, "mm_conv.json")
+    with open(paths["mm_conv"], "w") as f:
+        json.dump(chats, f)
+    return paths
+
+
+def train_argv(paths, model_dir, out, steps, device, extra=()):
+    """main's flags: the four task datasets of the tree at ratio 1 each (a
+    panoptic, region, referring and mm_conv batch in turn), batch 1, a log
+    line a step, keep-1 checkpoints."""
+    return ["--output_dir", out, "--model_name_or_path", model_dir,
+            "--panoptic_json_path", paths["root"],
+            "--region_json_path", paths["instance_json"],
+            "--ref_coco_path", paths["instance_json"],
+            "--mmconv_path", paths["mm_conv"],
+            "--image_folder", paths["images"], "--data_ratio", "1||1||1||1",
+            "--per_device_train_batch_size", "1", "--num_train_steps",
+            str(steps), "--save_total_limit", "1", "--logging_steps", "1",
+            "--seed", "15", "--device", device, *extra]
+
+
+def write_model_dir(torch, model, cfg, path):
+    """A checkpoint directory of ``model``'s weights in bf16 (as a released
+    checkpoint stores them) and its config."""
+    from psalm_tpu_torch.config import config_to_json
+    os.makedirs(path, exist_ok=True)
+    torch.save({k: v.to(torch.bfloat16) if v.is_floating_point() else v
+                for k, v in model.state_dict().items()},
+               os.path.join(path, "pytorch_model.bin"))
+    with open(os.path.join(path, "psalm_tpu_config.json"), "w") as f:
+        f.write(config_to_json(cfg))
+
+
+def read_log(path):
+    with open(os.path.join(path, "train_log.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def fixed_criterion(ttrain, draws):
+    """ttrain.PSALMCriterion with ``draws`` as its point draws (main builds
+    its own Trainer and criterion)."""
+
+    class Criterion(ttrain.PSALMCriterion):
+        def __init__(self, *a, **kw):
+            kw["uniform_fn"] = draws
+            super().__init__(*a, **kw)
+
+    return Criterion
+
+
+def check_small_train_cli(torch, np):
+    """Tiny config in f32: the training CLI on a small tree on the card
+    against the same on the CPU: one model directory, the same point draws,
+    no loader threads, and the card's run fed the CPU's samples (the
+    panoptic dataset shuffles its class names with Python's random, which
+    other code in the process may draw from too). lr 1e-7: Adam moves an
+    entry by about lr whatever its gradient's size, so the float dust that
+    differs between the two devices would part their parameters by lr a
+    step. Every logged loss and grad norm within 1e-3 relative."""
+    import shutil
+    from psalm_tpu_torch import tiny_test_config
+    from psalm_tpu_torch.models.psalm import PSALM, init_weights_
+    from psalm_tpu_torch.train import train as ttrain
+    root = os.path.join(HERE, "build", "train_cli_small")
+    shutil.rmtree(root, ignore_errors=True)
+    # at most 10 masks an image: the tiny config has 10 queries
+    paths = write_train_tree(np, root, 2, (96, 128), 8, 4, seed=16,
+                             segments=6, anns=4)
+    cfg = tiny_test_config()
+    model = init_weights_(PSALM(cfg, device="cpu"),
+                          torch.Generator().manual_seed(16))
+    model_dir = os.path.join(root, "model")
+    write_model_dir(torch, model, cfg, model_dir)
+    real = ttrain.PSALMCriterion, ttrain.collate
+    samples = []
+
+    def record(batch):
+        samples.append(batch)
+        return real[1](batch)
+
+    def replay(batch):
+        want = samples.pop(0)
+        if [s["dataset_type"] for s in batch] != \
+                [s["dataset_type"] for s in want]:
+            fail("small training CLI: the card drew another dataset")
+        return real[1](want)
+
+    ttrain.PSALMCriterion = fixed_criterion(ttrain, FixedDraws(np, torch))
+    logs = {}
+    try:
+        for dev, collate in (("cpu", record), ("cuda", replay)):
+            ttrain.collate = collate
+            out = os.path.join(root, f"out_{dev}")
+            ttrain.main(train_argv(paths, model_dir, out, 4, dev, (
+                "--bf16", "0", "--model_max_length", "512",
+                "--learning_rate", "1e-7", "--dataloader_num_workers", "0")),
+                tokenizer=WordTokenizer(cfg.phi.vocab_size))
+            logs[dev] = read_log(out)
+    finally:
+        ttrain.PSALMCriterion, ttrain.collate = real
+    for w, g in zip(logs["cpu"], logs["cuda"]):
+        for k in TRAIN_LOGGED:
+            if not abs(g[k] - w[k]) <= 1e-3 * abs(w[k]):
+                fail(f"small training CLI step {w['step']} "
+                     f"({w['dataset_type']}) {k}: card {g[k]} vs CPU {w[k]}")
+    log(f"  training CLI: {len(logs['cuda'])} steps "
+        f"({', '.join(l['dataset_type'] for l in logs['cuda'])}), losses and "
+        f"grad norm within 1e-3 of the CPU (last loss "
+        f"{logs['cuda'][-1]['loss']:.6f} vs {logs['cpu'][-1]['loss']:.6f})")
+
+
+def check_small_backbone(torch, np):
+    """Tiny config in f32: two tower-training steps (PSALM(train_backbone=
+    True), drop path at its rates with the same fixed draws) on the card
+    against the CPU: losses and grad norm within 1e-3, and K3's backward
+    launched once a block a step."""
+    from psalm_tpu_torch import tiny_test_config
+    from psalm_tpu_torch.data.datasets import SyntheticPanopticDataset, collate
+    from psalm_tpu_torch.models.psalm import PSALM, init_weights_
+    from psalm_tpu_torch.train.train import Trainer
+    cfg, steps = tiny_test_config(), 2
+    draws = FixedDraws(np, torch)
+    ds = SyntheticPanopticDataset(cfg.image_size, cfg.mask_decoder.num_queries,
+                                  4, num_samples=2, num_masks=3,
+                                  valid_masks=2, seed=3)
+    batch = collate([ds[0], ds[1]])
+    cpu = init_weights_(PSALM(cfg, device="cpu", remat=True,
+                              train_backbone=True),
+                        torch.Generator().manual_seed(17))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        model = PSALM(cfg, device=dev, remat=True, train_backbone=True)
+        model.load_state_dict(cpu.state_dict())
+        model.model.vision_tower.uniform_fn = draws
+        trainer = Trainer(train_args(bf16=False, warmup_ratio=0.1,
+                                     num_train_steps=10, train_backbone=True),
+                          cfg, model=model, device=dev, uniform_fn=draws)
+        zero_counts()
+        runs[dev] = ([{k: float(v) for k, v in trainer.step(batch).items()}
+                      for _ in range(steps)], launch_counts())
+    (want, _), (got, counts) = runs["cpu"], runs["cuda"]
+    for i, (w, g) in enumerate(zip(want, got)):
+        for key in ("loss_mask", "loss_dice", "loss_class_name_class",
+                    "loss", "grad_norm"):
+            if not abs(g[key] - w[key]) <= 1e-3 * abs(w[key]):
+                fail(f"small tower training step {i} {key}: card {g[key]} vs "
+                     f"CPU {w[key]}")
+    enc = cfg.pixel_decoder.transformer_enc_layers
+    blocks = sum(cfg.swin.depths)
+    expect = expected(K3=blocks * steps, K3_backward=blocks * steps,
+                      K1=2 * enc * steps, K2=enc * steps)
+    if counts != expect:
+        fail(f"small tower training: launches {counts} != {expect}")
+    log(f"  tower training: {steps} steps within 1e-3 of the CPU (loss "
+        f"{got[-1]['loss']:.6f} vs {want[-1]['loss']:.6f}, grad norm "
+        f"{got[-1]['grad_norm']:.6f} vs {want[-1]['grad_norm']:.6f}); "
+        f"launches {counts}")
+
+
+def phi_lm(torch, phi_cfg, dtype, device):
+    """Phi with its lm_head (``model.*``, ``lm_head.*``), as PSALM holds
+    them, for the LoRA phases."""
+    from psalm_tpu_torch.models.layers import Dense
+    from psalm_tpu_torch.models.phi import PhiModel
+
+    class PhiLM(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.model = PhiModel(phi_cfg, dtype=dtype, device=device)
+            self.lm_head = Dense(phi_cfg.hidden_size, phi_cfg.vocab_size,
+                                 bias=phi_cfg.lm_head_bias, dtype=dtype,
+                                 device=device)
+
+        def forward(self, ids):
+            return self.lm_head(self.model(self.model.embed(ids)))
+
+    return PhiLM()
+
+
+def qlora_model(torch, phi_cfg, dtype, device, seed):
+    """(QLoRA Phi LM on ``device``, its float base state dict): random base
+    weights from ``seed``, quantized to int8 (``quantize_phi_int8``) and
+    grafted under LoRA adapters of ``phi_cfg``'s rank, A ~ N(0, 0.02^2)
+    from the same generator, B = 0."""
+    import dataclasses
+    from psalm_tpu_torch.models.layers import LoRADense
+    from psalm_tpu_torch.models.psalm import init_weights_
+    from psalm_tpu_torch.models.quant import quantize_phi_int8
+    from psalm_tpu_torch.train.lora import graft_base_params
+    gen = torch.Generator(device=device).manual_seed(seed)
+    base_cfg = dataclasses.replace(phi_cfg, lora_rank=0, quant_bits=0)
+    base = init_weights_(phi_lm(torch, base_cfg, dtype, device), gen)
+    base_sd = {k: v.detach() for k, v in base.state_dict().items()}
+    del base
+    model = phi_lm(torch, phi_cfg, dtype, device)
+    for mod in model.modules():
+        if isinstance(mod, LoRADense):
+            mod.reset_adapters(gen)
+    model.load_state_dict(graft_base_params(model.state_dict(),
+                                            quantize_phi_int8(base_sd)))
+    return model, base_sd
+
+
+def lora_steps(torch, model, ids, steps, lr):
+    """``steps`` train_steps of next-token CE on ``ids`` under
+    psalm_finetune_optimizer; returns the losses."""
+    from psalm_tpu_torch.train.lora import psalm_finetune_optimizer
+    from psalm_tpu_torch.train.train import llm_ce_loss
+    from psalm_tpu_torch.train.train_step import TrainState, train_step
+    opt = psalm_finetune_optimizer(model, lr=lr, total_steps=steps,
+                                   warmup_ratio=0.0)
+    state = TrainState(0, model, opt)
+
+    def loss_fn(batch, generator):
+        loss = llm_ce_loss(model(batch), batch)
+        return loss, {"loss_llm": loss.detach()}
+
+    gen = torch.Generator(device=ids.device)
+    return [float(train_step(state, loss_fn, ids, gen)["loss"])
+            for _ in range(steps)], opt
+
+
+def check_small_lora(torch, np):
+    """Tiny Phi, QLoRA (rank 4 on the int8 base), f32: two train_steps
+    under psalm_finetune_optimizer on the card against the CPU from the
+    same weights: losses and the final logits within 1e-3."""
+    import dataclasses
+    from psalm_tpu_torch import tiny_test_config
+    phi_cfg = dataclasses.replace(tiny_test_config().phi, lora_rank=4,
+                                  quant_bits=8)
+    cpu, _ = qlora_model(torch, phi_cfg, torch.float32, "cpu", 18)
+    ids = torch.from_numpy(np.random.default_rng(18).integers(
+        3, phi_cfg.vocab_size, (2, 64)))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        model = phi_lm(torch, phi_cfg, torch.float32, dev)
+        model.load_state_dict(cpu.state_dict())
+        # lr 1e-4: Adam moves an entry by about lr whatever its gradient's
+        # size, so the devices' float dust parts them by lr a step
+        losses, _ = lora_steps(torch, model, ids.to(dev), 3, 1e-4)
+        with torch.no_grad():
+            runs[dev] = (losses, model(ids.to(dev)).float().cpu())
+    (wl, wlog), (gl, glog) = runs["cpu"], runs["cuda"]
+    for i, (w, g) in enumerate(zip(wl, gl)):
+        if not abs(g - w) <= 1e-3 * abs(w):
+            fail(f"small QLoRA step {i}: loss card {g} vs CPU {w}")
+    err = (glog - wlog).abs().max().item()
+    if not err <= 1e-3 * wlog.abs().max().item():
+        fail(f"small QLoRA: logits differ by {err}")
+    log(f"  QLoRA: 3 steps, losses {[round(v, 6) for v in gl]} within 1e-3 "
+        f"of the CPU's {[round(v, 6) for v in wl]}; logits within "
+        f"{err:.2e}")
+
+
+def trace_kernels(path):
+    """The CUDA kernels' names in a Chrome trace written by torch.profiler."""
+    with open(path) as f:
+        trace = json.load(f)
+    return {e.get("name", "") for e in trace.get("traceEvents", [])
+            if e.get("cat") == "kernel"}
+
+
+def train_cli_slice(torch, np, card):
+    """Phase 15: main at the full published width from a model directory of
+    seeded random weights, twice (the second resumes); returns the
+    launches of both calls."""
+    import shutil
+    from psalm_tpu_torch.config import PSALMConfig
+    from psalm_tpu_torch.models.psalm import PSALM, init_weights_
+    from psalm_tpu_torch.train import train as ttrain
+    try:
+        import tensorboard  # noqa: F401
+        report = ["--report_to", "tensorboard"]
+    except ImportError:
+        report = []
+        log("  tensorboard does not import here: --report_to none (the CPU "
+            "test holds the TensorBoard path)")
+    root = os.path.join(HERE, "build", "train_cli")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    paths = write_train_tree(np, root, CLI_IMAGES, CLI_HW, 80, 53, seed=15)
+    cfg = PSALMConfig()
+    model_dir = os.path.join(root, "model")
+    model = init_weights_(PSALM(cfg, device="cuda"),
+                          torch.Generator(device="cuda").manual_seed(15))
+    write_model_dir(torch, model, cfg, model_dir)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  tree and model directory written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    out = os.path.join(root, "out")
+    steps = []  # (dataset type, ms, launches) of every step
+    real_step = ttrain.Trainer.step
+
+    def timed_step(self, batch_np):
+        before = launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        metrics = real_step(self, batch_np)
+        torch.cuda.synchronize()
+        after = launch_counts()
+        steps.append((batch_np["dataset_type"],
+                      (time.perf_counter() - t) * 1e3,
+                      {k: after[k] - before[k] for k in after
+                       if after[k] != before[k]}))
+        return metrics
+
+    torch.cuda.reset_peak_memory_stats()
+    calls = []
+    ttrain.Trainer.step = timed_step
+    try:
+        for n, profile in zip(CLI_TRAIN_STEPS, CLI_PROFILE):
+            argv = train_argv(paths, model_dir, out, n, "cuda", (
+                "--dataloader_num_workers", "2", "--save_steps", "1000",
+                "--profile_steps", profile, *report))
+            zero_counts()
+            t = time.perf_counter()
+            state = ttrain.main(argv, tokenizer=WordTokenizer(
+                cfg.phi.vocab_size))
+            calls.append((state.step, state.optimizer.count,
+                          time.perf_counter() - t, launch_counts(),
+                          sorted(os.listdir(out))))
+    finally:
+        ttrain.Trainer.step = real_step
+    lines = read_log(out)
+    first, second = CLI_TRAIN_STEPS
+    if [l["step"] for l in lines] != list(range(second)):
+        fail(f"training CLI: logged steps {[l['step'] for l in lines]}")
+    for l in lines:
+        if not all(np.isfinite(l[k]) for k in TRAIN_LOGGED):
+            fail(f"training CLI: non-finite log line {l}")
+        if not l["loss"] > 0:  # every batch, the chat one too, has a loss
+            fail(f"training CLI: a zero loss at step {l['step']} ({l})")
+    for (step, count, _, _, dirs), n in zip(calls, CLI_TRAIN_STEPS):
+        ckpts = [d for d in dirs if d.startswith("checkpoint-")]
+        if step != n or count != n or ckpts != [f"checkpoint-{n}"]:
+            fail(f"training CLI: after {n} steps the state is at step {step}"
+                 f" (optimizer {count}) with checkpoints {ckpts}")
+    if len(steps) != second or steps[first][0] != lines[first]["dataset_type"]:
+        fail(f"training CLI: the resumed call did not start at step {first}")
+    types = [l["dataset_type"] for l in lines[:4]]
+    if sorted(types) != ["mm_conv", "panoptic_coco", "referring_coco",
+                         "region_coco"]:
+        fail(f"training CLI: the first four batches are {types}")
+    traced = {}
+    for profile in CLI_PROFILE:
+        path = os.path.join(out, "trace_steps_%s_%s.json"
+                            % tuple(profile.split(",")))
+        if not os.path.exists(path):
+            fail(f"training CLI: no profiler trace {path}")
+        names = trace_kernels(path)
+        traced[profile] = {k: any(v in n for n in names)
+                           for k, v in TRACE_NAMES.items()}
+        log(f"  trace of steps {profile}: {len(names)} kernel names, "
+            f"{traced[profile]}")
+    if not any(all(t.values()) for t in traced.values()):
+        fail(f"training CLI: no profiler trace names K1, K2 and K3 "
+             f"({traced})")
+    if report:
+        from tensorboard.backend.event_processing.event_accumulator import \
+            EventAccumulator
+        acc = EventAccumulator(os.path.join(out, "tb"))
+        acc.Reload()
+        for k in TRAIN_LOGGED + ("step",):
+            got = [(e.step, e.value) for e in acc.Scalars(k)]
+            want = [(l["step"], l[k]) for l in lines]
+            if [s for s, _ in got] != [s for s, _ in want] or not np.allclose(
+                    [v for _, v in got], [v for _, v in want], rtol=1e-6):
+                fail(f"training CLI: TensorBoard {k} {got} != log {want}")
+        log(f"  TensorBoard: {len(TRAIN_LOGGED) + 1} scalars of "
+            f"{len(lines)} steps read back equal to train_log.jsonl")
+    by_type = {}
+    for kind, ms, _ in steps:
+        by_type.setdefault(kind, []).append(round(ms, 1))
+    log(f"training CLI on {card}: {second} steps in two calls (resumed at "
+        f"step {first}), batch 1, bf16 compute, f32 parameters, 2 loader "
+        f"threads; step ms by dataset type {by_type} (each type's first "
+        f"step warms up); calls {[round(c[2], 1) for c in calls]} s "
+        f"(model load, checkpoint save and resume included); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches a "
+        f"step {[(kind, counts) for kind, _, counts in steps]}")
+    launches = {}
+    for i, call in enumerate(calls):
+        counts = call[3]
+        for k in ("K1", "K2", "K3"):
+            if counts[k] == 0:
+                fail(f"training CLI call {i + 1}: no {k} launch ({counts})")
+        if counts["K3 backward"] or counts["K4"]:
+            fail(f"training CLI call {i + 1}: the frozen tower and no int4 "
+                 f"layer launch no K3 backward or K4 ({counts})")
+        launches[f"train cli/call {i + 1}"] = counts
+    return launches
+
+
+def train_backbone_slice(torch, np, card):
+    """Phase 16: Trainer.step of PSALM(train_backbone=True) at the full
+    published width in the deformable mode; returns the timed steps'
+    launches. K3's backward is held per element on the step's own stage-0
+    inputs."""
+    from psalm_tpu_torch.data.datasets import (SyntheticPanopticDataset,
+                                               UnifiedTaskSampler, collate)
+    from psalm_tpu_torch.ops import swin_attention
+    from psalm_tpu_torch.train.train import Trainer, build_train_config
+    args = train_args(train_backbone=True)
+    cfg = build_train_config(args)
+    K, timed = cfg.num_classes + 1, 3
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(args, cfg, device="cuda")
+    ds = SyntheticPanopticDataset(cfg.image_size, cfg.mask_decoder.num_queries,
+                                  K, num_samples=4, num_masks=16)
+    sampler = UnifiedTaskSampler([ds], batch_size=1)
+    batches = [collate(sampler.next_batch()) for _ in range(1 + timed)]
+    tower = dict((n, p) for n, p in trainer.trainable
+                 if n.startswith("model.vision_tower."))
+    watch = ["model.vision_tower.patch_embed.proj.weight",
+             "model.vision_tower.layers.0.blocks.0.attn.qkv.weight",
+             "model.vision_tower.layers.0.blocks.1.attn."
+             "relative_position_bias_table",
+             "model.vision_tower.layers.3.blocks.1.mlp.fc2.weight"]
+    start = {k: tower[k].detach().clone() for k in watch}
+    # the warm-up step (lr 0) keeps K3's backward inputs at stage 0
+    captured = []
+    real_bwd = swin_attention.window_attention_bwd
+
+    res = -(-cfg.image_size // cfg.swin.patch_size)
+    stage0 = (-(-res // cfg.swin.window_size)) ** 2  # 484 at 1024^2
+
+    def keep(qkv, bias, mask, nheads, scale, dout):
+        if qkv.shape[0] == stage0:
+            captured.append(((qkv, bias, mask, nheads, scale), dout))
+        return real_bwd(qkv, bias, mask, nheads, scale, dout)
+
+    swin_attention.window_attention_bwd = keep
+    try:
+        t0 = time.perf_counter()
+        trainer.step(batches[0])
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+    finally:
+        swin_attention.window_attention_bwd = real_bwd
+    if any(not torch.equal(tower[k], start[k]) for k in watch):
+        fail("tower training: the first update (lr 0) moved the tower")
+    zero_counts()
+    times = []
+    for i, batch in enumerate(batches[1:]):
+        t0 = time.perf_counter()
+        metrics = trainer.step(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    counts = launch_counts()
+    values = {k: float(v) for k, v in metrics.items()}
+    if not all(np.isfinite(v) for v in values.values()):
+        fail(f"tower training: non-finite metrics {values}")
+    bad = [n for n, p in tower.items()
+           if p.grad is None or not torch.isfinite(p.grad).all()]
+    if bad:
+        fail(f"tower training: missing or non-finite gradients {bad[:5]}")
+    still = [k for k in watch if torch.equal(tower[k], start[k])]
+    if still:
+        fail(f"tower training: the tower did not move: {still}")
+    enc = cfg.pixel_decoder.transformer_enc_layers
+    blocks = sum(cfg.swin.depths)
+    expect = expected(K1=2 * enc * timed, K2=enc * timed, K3=blocks * timed,
+                      K3_backward=blocks * timed)
+    log(f"launches in the {timed} timed steps: {counts} (expected {expect})")
+    if counts != expect:
+        fail(f"tower training: kernel launches {counts} != {expect}")
+    log(f"tower training on {card}: step ms "
+        f"{[round(t * 1e3, 2) for t in times]} (median "
+        f"{sorted(times)[len(times) // 2] * 1e3:.2f}; warm-up "
+        f"{warm_s * 1e3:.0f} ms), batch 1, bf16 compute, f32 parameters, "
+        f"drop path 0-{cfg.swin.drop_path_rate}; last step "
+        + ", ".join(f"{k} {v:.5f}" for k, v in values.items())
+        + f"; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB; launches per step "
+        + ", ".join(f"{k} {v // timed}" for k, v in counts.items() if v))
+    del trainer, batches, tower
+    gc.collect()
+    if {a[2] is None for a, _ in captured} != {True, False}:
+        fail(f"tower training: {len(captured)} stage-0 backward calls kept")
+    matmul = torch.backends.cuda.matmul
+    reduced = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        for args, dout in captured:
+            name = (f"K3 backward on the tower step's stage-0 inputs "
+                    f"({'shift-mask' if args[2] is not None else 'no-mask'})")
+            _, _, worst = hold_k3_bwd(torch, swin_attention, name, args, dout)
+            log(f"  {name}: worst {worst} of the limit")
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = reduced
+    return {"train backbone": counts}
+
+
+def lora_slice(torch, np, card):
+    """Phase 17: QLoRA at the full published Phi width: rank 64 adapters
+    on the int8 base, psalm_finetune_optimizer, 3 train_steps; the base
+    stays bit for bit, the adapters move, and merge_lora gives a bf16 Phi
+    whose logits agree with the adapted one's."""
+    import dataclasses
+    from psalm_tpu_torch.config import PSALMConfig
+    from psalm_tpu_torch.train import lora
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    phi_cfg = dataclasses.replace(PSALMConfig().phi, lora_rank=LORA_RANK,
+                                  lora_alpha=LORA_ALPHA, quant_bits=8)
+    model, _ = qlora_model(torch, phi_cfg, torch.bfloat16, "cuda", 19)
+    frozen = {k: v.clone() for k, v in model.state_dict().items()
+              if not lora.is_lora(k)}
+    adapters = {k: v.clone() for k, v in model.state_dict().items()
+                if lora.is_lora(k)}
+    n_int8 = sum(v.dtype == torch.int8 for v in frozen.values())
+    ids = torch.randint(3, phi_cfg.vocab_size, (1, LORA_LEN),
+                        generator=torch.Generator(device="cuda")
+                        .manual_seed(19), device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses, opt = lora_steps(torch, model, ids, LORA_STEPS, LORA_LR)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / LORA_STEPS
+    if not all(np.isfinite(losses)):
+        fail(f"QLoRA: non-finite losses {losses}")
+    sd = model.state_dict()
+    moved = [k for k in frozen if not torch.equal(sd[k], frozen[k])]
+    if moved:
+        fail(f"QLoRA: frozen base tensors changed: {moved[:5]}")
+    still = [k for k, v in adapters.items()
+             if k.endswith(".lora_B") and torch.equal(sd[k], v)]
+    if still:
+        fail(f"QLoRA: adapters that did not move: {still[:5]}")
+    n_train = sum(p.numel() for p in opt.params)
+    merged_sd = lora.merge_lora(sd, alpha=LORA_ALPHA)
+    with torch.no_grad():
+        adapted = model(ids).float()
+        for k in adapters:  # the base alone: every B at zero
+            if k.endswith(".lora_B"):
+                model.get_parameter(k).zero_()
+        base = model(ids).float()
+    del model, sd
+    gc.collect()
+    merged = phi_lm(torch, dataclasses.replace(phi_cfg, lora_rank=0,
+                                               quant_bits=0),
+                    torch.bfloat16, "cuda")
+    merged.load_state_dict({k: v.to(torch.bfloat16) if v.is_floating_point()
+                            else v for k, v in merged_sd.items()},
+                           assign=True)
+    with torch.no_grad():
+        got = merged(ids).float()
+    scale = adapted.abs().max().item()
+    err = (got - adapted).abs().max().item()
+    effect = (base - adapted).abs().max().item()
+    log(f"QLoRA on {card}: Phi-1.5 int8 base ({n_int8} int8 tensors), rank "
+        f"{LORA_RANK} adapters, {n_train / 1e6:.2f} M trained parameters, "
+        f"{LORA_STEPS} steps of {LORA_LEN} tokens at lr {LORA_LR}: losses "
+        f"{[round(v, 5) for v in losses]}, {step_ms:.1f} ms a step, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; every int8 "
+        f"base tensor unchanged, every B moved; merged bf16 logits within "
+        f"{err:.4f} of the adapted ones (limit {LORA_MERGE_TOL} x "
+        f"{scale:.3f}; the adapters move them by {effect:.4f})")
+    if not err <= LORA_MERGE_TOL * scale:
+        fail(f"QLoRA: merged logits differ by {err} > {LORA_MERGE_TOL} x "
+             f"{scale}")
+    del merged
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "psalm_tpu_torch")):
         fail("psalm_tpu_torch is not beside chip_smoke.py: run it from the "
@@ -2521,6 +3278,7 @@ def main():
     check_k5(torch, flash_attention, records)
     check_k2(torch, msdeform, records)
     check_k5_bwd(torch, flash_attention, records)
+    check_k3_bwd(torch, swin_attention, records)
 
     log("== small slice (tiny config, f32: card kernels vs CPU plain)")
     check_small_slice(torch, np)
@@ -2580,6 +3338,27 @@ def main():
                              DAVIS_OBJECTS, seed=14)
     check_small_davis(torch, np, davis)
     paths.update(davis_slice(torch, np, card, davis))
+    torch.cuda.empty_cache()
+
+    log("== small training CLI, tower training and QLoRA (tiny config, f32: "
+        "card kernels vs CPU plain)")
+    check_small_train_cli(torch, np)
+    check_small_backbone(torch, np)
+    check_small_lora(torch, np)
+
+    log("== training CLI (train.py::main, PSALMConfig(), bf16, 2 calls: "
+        "the second resumes)")
+    paths.update(train_cli_slice(torch, np, card))
+    torch.cuda.empty_cache()
+
+    log("== tower training (PSALMConfig(), PSALM(train_backbone=True), "
+        "deformable, bf16, Trainer.step)")
+    paths.update(train_backbone_slice(torch, np, card))
+    torch.cuda.empty_cache()
+
+    log("== QLoRA (Phi-1.5, rank 64 on the int8 base, "
+        "psalm_finetune_optimizer, train_step)")
+    lora_slice(torch, np, card)
 
     bad = [m for m in sys.modules if m in ("jax", "flax", "optax")
            or m == "psalm_tpu" or m.startswith("psalm_tpu.")]

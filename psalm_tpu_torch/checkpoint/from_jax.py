@@ -26,6 +26,15 @@ and the Phi linears quantized by ``psalm_tpu/models/quant.py``:
                                           in its high one (lossless)
   scale f32 ([out] or [in/g, out])     -> scale, unchanged
 
+and the LoRA layers (``LoRADense``) of a Phi with ``lora_rank`` > 0:
+
+  base/{kernel, bias} or base/{kernel_q, scale, bias}
+                                       -> base.{weight, bias} or
+                                          base.{weight (int8), scale, bias},
+                                          as above
+  lora_A [in, r], lora_B [r, out]      -> lora_A, lora_B, unchanged (the
+                                          port keeps JAX's orientation)
+
 Host numpy only: the arrays may be jax arrays, read with ``np.asarray``.
 """
 
@@ -74,6 +83,11 @@ def _mha(sd: StateDict, prefix: str, p: Dict[str, Any]) -> None:
 
 
 def _phi_linear(sd: StateDict, prefix: str, p: Dict[str, Any]) -> None:
+    if "lora_A" in p:
+        sd[prefix + ".lora_A"] = _a(p["lora_A"])
+        sd[prefix + ".lora_B"] = _a(p["lora_B"])
+        _phi_linear(sd, prefix + ".base", p["base"])
+        return
     if "kernel_q" in p:
         sd[prefix + ".weight"] = _a(p["kernel_q"]).T
         sd[prefix + ".scale"] = _a(p["scale"])

@@ -1,6 +1,6 @@
 """Shared blocks: the building modules of the port and the counterparts of
 ``psalm_tpu/models/layers.py`` (sine position embedding, torch-compatible
-multi-head attention, DETR-style MLP).
+multi-head attention, DETR-style MLP, the LoRA linear).
 
 Dtype rules follow the JAX package's flax modules, so that a model stored in
 bf16 computes as ``psalm_tpu`` does with ``compute_dtype="bfloat16"``:
@@ -39,6 +39,45 @@ class Dense(nn.Module):
         dt = self.dtype
         b = None if self.bias is None else self.bias.to(dt)
         return F.linear(x.to(dt), self.weight.to(dt), b)
+
+
+class LoRADense(nn.Module):
+    """A linear layer with an additive low-rank adapter (``psalm_tpu``'s
+    ``LoRADense``): y = base(x) + (alpha / rank) (x A) B, with A
+    [in, rank] and B [rank, out] in JAX's orientation and the adapter in
+    x's type, as JAX computes it (so an f32 input gives an f32 output). The
+    base is a ``Dense`` or, with ``quant_bits == 8``, an int8
+    ``QuantDense`` (QLoRA); its keys sit under ``base.``. ``reset_adapters``
+    draws A from N(0, 0.02^2) and zeroes B, so the adapter starts at zero
+    and the grafted base model is unchanged. ``psalm_tpu_torch.train.lora``
+    freezes the base."""
+
+    def __init__(self, in_features: int, out_features: int, rank: int,
+                 alpha: float = 16.0, bias: bool = True, dtype=torch.float32,
+                 quant_bits: int = 0, device=None):
+        super().__init__()
+        if quant_bits == 8:
+            from psalm_tpu_torch.models.quant import QuantDense
+            self.base = QuantDense(in_features, out_features, bias=bias,
+                                   dtype=dtype, device=device)
+        elif quant_bits == 0:
+            self.base = Dense(in_features, out_features, bias=bias,
+                              dtype=dtype, device=device)
+        else:
+            raise ValueError(f"LoRA over quant_bits={quant_bits}: the base "
+                             "is float or int8")
+        self.scaling = alpha / rank
+        self.lora_A = _empty(in_features, rank, device=device)
+        self.lora_B = _empty(rank, out_features, device=device)
+
+    @torch.no_grad()
+    def reset_adapters(self, generator: torch.Generator) -> None:
+        self.lora_A.normal_(0.0, 0.02, generator=generator)
+        self.lora_B.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        delta = (x @ self.lora_A.to(x.dtype)) @ self.lora_B.to(x.dtype)
+        return self.base(x) + delta * self.scaling
 
 
 class Conv2d(nn.Module):

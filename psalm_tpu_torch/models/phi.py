@@ -8,7 +8,8 @@ branches off one input LayerNorm, partial rotary embedding over the first
 f32 with an additive f32 bias of -1e9 for causal and padding masking, the
 einsum branch of the JAX package in plain PyTorch. The linears are
 ``Dense``, or the int8 / int4 layers of ``models/quant.py`` when
-``cfg.quant_bits`` is 8 or 4.
+``cfg.quant_bits`` is 8 or 4, or with ``cfg.lora_rank`` > 0 a ``LoRADense``
+over a float or int8 base (``models/layers.py``).
 
 With ``use_flash`` (off by default, as in JAX), a full-sequence forward
 without a cache and of more than one token takes JAX's flash branch instead:
@@ -209,8 +210,6 @@ class PhiModel(nn.Module):
     def __init__(self, cfg: PhiConfig, dtype=torch.float32, device=None,
                  use_flash: bool = False, remat: bool = False):
         super().__init__()
-        if cfg.lora_rank:
-            raise NotImplementedError("LoRA adapters are not ported")
         self.cfg = cfg
         self.dtype = dtype
         self.remat = remat

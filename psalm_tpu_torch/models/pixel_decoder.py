@@ -197,7 +197,8 @@ class MSDeformAttnPixelDecoder(nn.Module):
         if cfg.window_point_radii:
             raise NotImplementedError(
                 f"pixel decoder window_point_radii={cfg.window_point_radii} "
-                "is not ported")
+                "is not ported (ROADMAP.md, Queue 1 item 7: K1 and K2 with "
+                "one radius per point)")
         if mode not in ("deformable", "dense") + _CLAMPED_MODES:
             raise ValueError(f"unknown attention_mode {mode!r}")
         self.cfg = cfg

@@ -17,16 +17,19 @@ Counterpart of ``psalm_tpu/models/psalm.py`` for two paths:
     (``assemble_embeddings``), Phi with a KV cache (``model``, a
     ``PhiModel``) and the ``lm_head`` logits;
   * the training forward (``forward(..., train=True)``, what
-    ``train/train.py`` differentiates): the vision tower runs under
+    ``train/train.py`` differentiates): the frozen vision tower runs under
     ``torch.no_grad()``, the counterpart of JAX's ``stop_gradient`` on the
     frozen tower's features (the projector after it trains, its BatchNorm
-    on the running statistics as always); a ``random_idx`` in the batch
+    on the running statistics as always). With ``train_backbone=True`` the
+    tower records its graph instead (K3's backward on the card) and, given
+    the step's ``generator``, applies its drop path (JAX's
+    ``deterministic=not (train and train_backbone)``); a ``random_idx`` in
+    the batch
     reorders the class-name embeddings and their validity; and
     ``compute_logits=True`` adds the ``lm_head`` logits (``"logits"``) for
     the conversation loss. ``remat`` checkpoints Phi's decoder layers and,
     unless ``remat_pixel`` says otherwise, the pixel decoder's encoder
-    layers. Training the tower (``train_backbone=True``) needs a backward of
-    K3 and raises ``NotImplementedError``.
+    layers (the tower is not checkpointed, as in JAX).
 
 Parameter names are the released checkpoint's torch keys, so
 ``load_state_dict`` takes a released-format state dict directly, or the
@@ -98,11 +101,8 @@ class PSALM(nn.Module):
                  remat_pixel: Optional[bool] = None,
                  train_backbone: bool = False):
         super().__init__()
-        if train_backbone:
-            raise NotImplementedError(
-                "train_backbone=True: training the Swin tower needs a "
-                "backward of K3 (csrc/swin_attention.cu), which is not ported")
         self.cfg = cfg
+        self.train_backbone = train_backbone
         self.dtype = dtype
         c = cfg
         hd = c.mask_decoder.hidden_dim
@@ -121,19 +121,23 @@ class PSALM(nn.Module):
                      "class_name_projector", "region_projector"):
             setattr(self, name, layers.Dense(D, hd, dtype=dtype, device=device))
 
-    def encode_images(self, images: torch.Tensor, train: bool = False):
+    def encode_images(self, images: torch.Tensor, train: bool = False,
+                      generator: Optional[torch.Generator] = None):
         """images [B, H, W, 3] (normalized, or raw uint8) -> (features
         res2..res5, image tokens [B, N, D_llm]). With ``train`` the frozen
-        tower records no graph, so no gradient reaches it or is kept for it."""
+        tower records no graph, so no gradient reaches it or is kept for it;
+        a training tower (``train_backbone``) records it and draws its drop
+        path from ``generator`` (none: deterministic)."""
         if images.dtype == torch.uint8:
             mean = torch.tensor(PIXEL_MEAN, device=images.device)
             std = torch.tensor(PIXEL_STD, device=images.device)
             images = (images.float() - mean) / std
-        if train:
+        if train and not self.train_backbone:
             with torch.no_grad():
                 feats = self.model.vision_tower(images)
         else:
-            feats = self.model.vision_tower(images)
+            feats = self.model.vision_tower(images,
+                                            generator if train else None)
         return feats, self.model.mm_projector(feats[-1])
 
     def sample_regions(self, image_tokens: torch.Tensor,
@@ -178,21 +182,26 @@ class PSALM(nn.Module):
                 max_regions: int = 0,
                 num_class_names: Optional[int] = None,
                 train: bool = False,
-                compute_logits: bool = False) -> Dict[str, torch.Tensor]:
+                compute_logits: bool = False,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
         """batch: the splicer's arrays as tensors (tok_ids, src_type, src_idx,
         attention_mask, seg_query_mask, class_name_embedding_indices,
         refer_embedding_indices, region_embedding_mask), images [B, H, W, 3]
         and, with ``use_regions``, region_points [B, R, P, 2], optionally
         region_valid [B, R] and vp_images (the previous frame, whose tokens
         the regions are sampled from), and optionally random_idx [B, K], the
-        training order of the class names. Returns the mask decoder's
-        outputs, the LLM's last hidden state and, with ``compute_logits``,
-        its ``lm_head`` logits."""
+        training order of the class names. ``generator``: the training
+        tower's drop-path draws. Returns the mask decoder's outputs, the
+        LLM's last hidden state and, with ``compute_logits``, its
+        ``lm_head`` logits."""
         c = self.cfg
-        feats, image_tokens = self.encode_images(batch["images"], train=train)
+        feats, image_tokens = self.encode_images(batch["images"], train=train,
+                                                 generator=generator)
         region_tokens = None
         if use_regions:
-            vp_tokens = (self.encode_images(batch["vp_images"], train=train)[1]
+            vp_tokens = (self.encode_images(batch["vp_images"], train=train,
+                                            generator=generator)[1]
                          if "vp_images" in batch else image_tokens)
             region_tokens = self.sample_regions(vp_tokens,
                                                 batch["region_points"])
@@ -253,10 +262,10 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     the JAX package's init recipe: LeCun-normal linear and conv weights, zero
     biases (the dense pixel-decoder attention's four linears among them),
     unit norms, N(0, 1/D) token embeddings, N(0, 1) query and level tables,
-    N(0, 0.02) relative position bias tables, zero seg queries, and for each
-    deformable attention a zero ``sampling_offsets`` weight with the
-    deformable-DETR bias (``offset_bias_init``) and a zero
-    ``attention_weights`` layer."""
+    N(0, 0.02) relative position bias tables, zero seg queries, LoRA
+    adapters A ~ N(0, 0.02) and B = 0, and for each deformable attention a
+    zero ``sampling_offsets`` weight with the deformable-DETR bias
+    (``offset_bias_init``) and a zero ``attention_weights`` layer."""
 
     def normal_(t, std):
         t.normal_(0.0, std, generator=generator)
@@ -282,6 +291,8 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             normal_(mod.weight, 1.0)
         elif isinstance(mod, WindowAttention):
             normal_(mod.relative_position_bias_table, 0.02)
+        elif isinstance(mod, layers.LoRADense):
+            mod.reset_adapters(generator)
     for mod in model.modules():  # after the generic pass above
         if isinstance(mod, MSDeformAttnLayer):
             mod.sampling_offsets.weight.zero_()

@@ -33,7 +33,7 @@ from typing import Dict
 import torch
 from torch import nn
 
-from psalm_tpu_torch.models.layers import Dense
+from psalm_tpu_torch.models.layers import Dense, LoRADense
 from psalm_tpu_torch.ops.int4_matvec import (check_weight, int4_matvec,
                                              int4_matvec_supported,
                                              unpack_int4)
@@ -42,12 +42,13 @@ GROUP = 64
 STORAGES = ("packed", "native", "pallas")
 
 # the weights that get quantized, psalm_tpu's QUANT_LAYER_NAMES of the Phi
-# stack: model.layers.{i}.self_attn.{q,k,v}_proj/dense and mlp.fc1/fc2
-# (embeddings, lm_head and the vision stack stay full precision; Swin's
-# blocks also have mlp.fc1/fc2)
+# stack: model.layers.{i}.self_attn.{q,k,v}_proj/dense and mlp.fc1/fc2, or
+# a LoRA layer's base weight there (...q_proj.base.weight); embeddings,
+# lm_head and the vision stack stay full precision (Swin's blocks also have
+# mlp.fc1/fc2)
 _PHI_LINEAR = re.compile(
     r"^model\.layers\.\d+\.(self_attn\.(q_proj|k_proj|v_proj|dense)"
-    r"|mlp\.(fc1|fc2))\.weight$")
+    r"|mlp\.(fc1|fc2))(\.base)?\.weight$")
 
 
 class QuantDense(nn.Module):
@@ -151,11 +152,14 @@ class Quant4Dense(nn.Module):
 
 def make_dense(cfg, in_features: int, out_features: int, dtype=torch.float32,
                device=None) -> nn.Module:
-    """The linear layer of a Phi config: ``Dense``, ``QuantDense`` (8 bits)
-    or ``Quant4Dense`` (4 bits, in ``cfg.quant_storage``), as
+    """The linear layer of a Phi config: ``LoRADense`` when ``cfg.lora_rank``
+    > 0 (over a float or int8 base), else ``Dense``, ``QuantDense`` (8
+    bits) or ``Quant4Dense`` (4 bits, in ``cfg.quant_storage``), as
     ``psalm_tpu/models/phi.py::_dense`` picks."""
-    if cfg.lora_rank:
-        raise NotImplementedError("LoRA adapters are not ported")
+    if cfg.lora_rank > 0:
+        return LoRADense(in_features, out_features, cfg.lora_rank,
+                         cfg.lora_alpha, dtype=dtype,
+                         quant_bits=cfg.quant_bits, device=device)
     if cfg.quant_bits == 8:
         return QuantDense(in_features, out_features, dtype=dtype, device=device)
     if cfg.quant_bits == 4:
@@ -214,9 +218,9 @@ def _quantize_phi(sd: Dict[str, torch.Tensor], bits: int,
 
 
 def quantize_phi_int8(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """The port's state dict with every Phi linear weight replaced by an
-    int8 ``weight`` and its ``scale`` (``psalm_tpu``'s
-    ``quantize_phi_int8``), on the tensors' device."""
+    """The port's state dict with every Phi linear weight, a LoRA layer's
+    base weight included, replaced by an int8 ``weight`` and its ``scale``
+    (``psalm_tpu``'s ``quantize_phi_int8``), on the tensors' device."""
     return _quantize_phi(sd, 8)
 
 

@@ -3,9 +3,17 @@
 Counterpart of ``psalm_tpu/models/swin.py``: the same padding of each block
 to a window multiple after ``norm1`` (padded tokens take part in the
 attention of un-shifted blocks), the same cyclic shift and -100 shift mask,
-the same LayerNorms before each stage output. The window-attention core runs
-in kernel K3 (``psalm_tpu_torch/ops/swin_attention.py``); the ``qkv``/``proj``
-linears and the relative-position-bias gather stay plain PyTorch.
+the same LayerNorms before each stage output, and the same stochastic depth
+(drop path) when the tower trains: block i of the sum(depths) blocks drops
+each sample's residual branches with rate linspace(0, drop_path_rate,
+sum(depths))[i], keeping a sample with probability 1 - rate and scaling the
+kept ones by 1 / (1 - rate). Its draws come from the ``generator`` the
+caller passes (no generator: deterministic, as every eval runs), through
+``uniform_fn`` (the tests inject their own draws). The window-attention
+core runs in kernel K3 and, when the tower trains, its backward
+(``psalm_tpu_torch/ops/swin_attention.py``); the ``qkv``/``proj`` linears
+and the relative-position-bias gather stay plain PyTorch, so the bias
+table's gradient comes back through the gather by autograd.
 
 Parameter names are the released checkpoint's (``model.vision_tower.*``).
 """
@@ -21,7 +29,22 @@ from torch import nn
 
 from psalm_tpu_torch.config import SwinConfig
 from psalm_tpu_torch.models.layers import Conv2d, Dense, LayerNorm
+from psalm_tpu_torch.ops.sampling import UniformFn, default_uniform
 from psalm_tpu_torch.ops.swin_attention import window_attention
+
+
+def drop_path(x: torch.Tensor, rate: float,
+              generator: Optional[torch.Generator],
+              uniform_fn: UniformFn = default_uniform) -> torch.Tensor:
+    """x [B, L, C] with each sample's branch kept with probability 1 - rate
+    (u < 1 - rate for u drawn U[0, 1) of shape [B, 1, 1]) and scaled by
+    1 / (1 - rate), as ``psalm_tpu``'s ``SwinBlock._drop_path``; x itself
+    without a generator or at rate 0."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    u = uniform_fn(generator, (x.shape[0], 1, 1)).to(x.device)
+    return x * (u < keep).to(x.dtype) / keep
 
 
 def relative_position_index(window_size: int) -> np.ndarray:
@@ -107,10 +130,11 @@ class Mlp(nn.Module):
 class SwinBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, window_size: int,
                  shift_size: int, mlp_ratio: float, qkv_bias: bool,
-                 dtype=torch.float32, device=None):
+                 drop_path: float = 0.0, dtype=torch.float32, device=None):
         super().__init__()
         self.window_size = window_size
         self.shift_size = shift_size
+        self.drop_path = drop_path
         self.norm1 = LayerNorm(dim, device=device)
         self.attn = WindowAttention(dim, window_size, num_heads, qkv_bias,
                                     dtype=dtype, device=device)
@@ -118,8 +142,11 @@ class SwinBlock(nn.Module):
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor, H: int, W: int,
-                mask: Optional[torch.Tensor]) -> torch.Tensor:
-        """x [B, H*W, C]; mask: the stage's shift mask (used when shifted)."""
+                mask: Optional[torch.Tensor],
+                generator: Optional[torch.Generator] = None,
+                uniform_fn: UniformFn = default_uniform) -> torch.Tensor:
+        """x [B, H*W, C]; mask: the stage's shift mask (used when shifted);
+        ``generator``: the drop path's draws (None: no drop path)."""
         B, L, C = x.shape
         ws, s = self.window_size, self.shift_size
         shortcut = x
@@ -136,8 +163,9 @@ class SwinBlock(nn.Module):
         if s > 0:
             x = torch.roll(x, shifts=(s, s), dims=(1, 2))
         x = x[:, :H, :W].reshape(B, H * W, C)
-        x = shortcut + x
-        return x + self.mlp(self.norm2(x))
+        x = shortcut + drop_path(x, self.drop_path, generator, uniform_fn)
+        return x + drop_path(self.mlp(self.norm2(x)), self.drop_path,
+                             generator, uniform_fn)
 
 
 class PatchMerging(nn.Module):
@@ -166,26 +194,39 @@ class PatchEmbed(nn.Module):
             else None
 
 
+def drop_path_rates(cfg: SwinConfig) -> np.ndarray:
+    """Each block's drop-path rate, in block order: linspace(0,
+    drop_path_rate, sum(depths)) (``psalm_tpu/models/swin.py``)."""
+    return np.linspace(0, cfg.drop_path_rate, sum(cfg.depths))
+
+
 class BasicLayer(nn.Module):
     def __init__(self, cfg: SwinConfig, i: int, dtype=torch.float32,
                  device=None):
         super().__init__()
         dim = cfg.num_features[i]
+        first = sum(cfg.depths[:i])
+        rates = drop_path_rates(cfg)
         self.blocks = nn.ModuleList(
             SwinBlock(dim, cfg.num_heads[i], cfg.window_size,
                       0 if j % 2 == 0 else cfg.window_size // 2,
-                      cfg.mlp_ratio, cfg.qkv_bias, dtype=dtype, device=device)
+                      cfg.mlp_ratio, cfg.qkv_bias,
+                      drop_path=float(rates[first + j]), dtype=dtype,
+                      device=device)
             for j in range(cfg.depths[i]))
         self.downsample = (PatchMerging(dim, dtype=dtype, device=device)
                            if i < len(cfg.depths) - 1 else None)
 
 
 class SwinTransformer(nn.Module):
-    """images [B, H, W, 3] normalized -> (res2, res3, res4, res5) NHWC."""
+    """images [B, H, W, 3] normalized -> (res2, res3, res4, res5) NHWC.
+    ``uniform_fn`` draws the drop path's U[0, 1) numbers from a generator
+    (the tests replace it with their own draws)."""
 
     def __init__(self, cfg: SwinConfig, dtype=torch.float32, device=None):
         super().__init__()
         self.cfg = cfg
+        self.uniform_fn: UniformFn = default_uniform
         self.patch_embed = PatchEmbed(cfg, dtype=dtype, device=device)
         self.layers = nn.ModuleList(
             BasicLayer(cfg, i, dtype=dtype, device=device)
@@ -203,7 +244,11 @@ class SwinTransformer(nn.Module):
                 shift_attn_mask(Hp, Wp, ws, ws // 2)).to(device)
         return self._masks[key]
 
-    def forward(self, images: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    def forward(self, images: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, ...]:
+        """With a ``generator``, every block's drop path draws from it (the
+        tower trains); without one, none is applied."""
         c = self.cfg
         B, H, W, _ = images.shape
         if H % c.patch_size or W % c.patch_size:
@@ -221,7 +266,7 @@ class SwinTransformer(nn.Module):
             mask = self._shift_mask(Hp, Wp, x.device) if len(layer.blocks) > 1 \
                 else None
             for blk in layer.blocks:
-                x = blk(x, Wh, Ww, mask)
+                x = blk(x, Wh, Ww, mask, generator, self.uniform_fn)
             if i in c.out_indices:
                 y = getattr(self, f"norm{i}")(x)
                 outs.append(y.reshape(B, Wh, Ww, c.num_features[i]))

@@ -51,6 +51,10 @@ SIGNATURES = {
     # qkv, bias, mask, out, dtype, Bn, N, C, nheads, nW, scale, stream
     "psalm_window_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                                    _P],
+    # qkv, bias, mask, dout, dqkv, dbias, dtype, Bn, N, C, nheads, nW, scale,
+    # stream
+    "psalm_window_attention_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _I, _F, _P],
     # x, packed, scale, out, dtype, B, K, N, group, cluster, tc_count,
     # rows_per_rank, stream
     "psalm_int4_matvec": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],

@@ -15,12 +15,25 @@ half-pixel sample positions (i + 0.5) * in / out - 0.5, each output's weights
 normalised to sum to 1, and zero for a sample outside [-0.5, in - 0.5]. For
 upsampling and for downsampling without antialiasing that is
 ``F.interpolate(mode="bilinear", align_corners=False)``.
+
+``default_uniform`` is the U[0, 1) draw that the criterion's point samples
+and Swin's drop path take from a ``torch.Generator`` (a ``UniformFn``: the
+tests put their own draws in its place).
 """
 
 from __future__ import annotations
 
+from typing import Callable, Tuple
+
 import numpy as np
 import torch
+
+UniformFn = Callable[[torch.Generator, Tuple[int, ...]], torch.Tensor]
+
+
+def default_uniform(generator: torch.Generator, shape) -> torch.Tensor:
+    """U[0, 1) draws of ``shape`` on the generator's device."""
+    return torch.rand(shape, generator=generator, device=generator.device)
 
 _EPS_F32 = float(np.finfo(np.float32).eps)
 

@@ -36,7 +36,7 @@ overwrites that target's label; the port scatters the valid pairs only.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -44,14 +44,8 @@ import torch.nn.functional as F
 from scipy.optimize import linear_sum_assignment
 
 from psalm_tpu_torch.config import LossConfig
-from psalm_tpu_torch.ops.sampling import point_sample
-
-UniformFn = Callable[[torch.Generator, Tuple[int, ...]], torch.Tensor]
-
-
-def default_uniform(generator: torch.Generator, shape) -> torch.Tensor:
-    """U[0, 1) draws of ``shape`` on the generator's device."""
-    return torch.rand(shape, generator=generator, device=generator.device)
+from psalm_tpu_torch.ops.sampling import (UniformFn, default_uniform,
+                                          point_sample)
 
 
 # ---------------------------------------------------------------------------

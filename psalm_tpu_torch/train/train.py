@@ -9,18 +9,38 @@ with f32 parameters, gradient checkpointing, checkpoints every
 ``save_steps`` keeping ``save_total_limit``, auto-resume, and per-component
 loss logging with the last-nonzero fallback of
 LLaVATrainer.compute_loss (llava_trainer.py:258-318) into
-``train_log.jsonl``.
+``train_log.jsonl`` and, with ``--report_to tensorboard``, as TensorBoard
+scalars under ``output_dir/tb`` (the same tags and steps).
+``--dataloader_num_workers`` > 0 draws the batches through
+``data/prefetch.py``'s ``PrefetchLoader`` (the same batches, mapped ahead
+on threads); ``--profile_steps a,b`` traces steps a..b with
+``torch.profiler`` into a Chrome trace in ``output_dir``.
 
-Not ported (``ROADMAP.md``): LoRA, training the vision tower, per-point
-window radii, data parallelism and ZeRO sharding, the COCO / RefCOCO dataset
-classes and the prefetching loader (``Trainer.train`` draws its batches
-synchronously), and with them the command-line ``main``, TensorBoard
-scalars, profiler traces and orbax checkpoints (``torch.save`` files
-instead).
+``main`` is the command line (``python -m psalm_tpu_torch.train.train
+--output_dir ... --panoptic_json_path ...``): the six dataset classes from
+the paths with JAX's ``--data_ratio`` rule, one sampler shard, the model
+from ``--model_name_or_path`` (the port's released-format checkpoint
+directory, ``models/builder.py``; random weights from ``--seed`` without
+one) in f32 parameters with the compute type of ``--bf16``, on
+``--device`` (the card unless the caller asks for the CPU). The config
+comes from ``build_train_config(args)``, so the flags take effect (JAX's
+``main`` builds ``PSALMConfig(seg_task=...)`` and hands it to its Trainer,
+which then ignores ``--pixel_decoder_mode``, ``--window_point_radii``,
+``--window_custom_vjp`` and ``--bf16``; ``ROADMAP.md``, Queue 3). Two
+modes beyond JAX's flags: ``--train_backbone`` trains the Swin tower too
+(K3's backward on the card, its drop path drawn from the step's
+generator), and ``--lora_rank`` > 0 puts LoRA adapters on Phi's linears
+and trains ``train/lora.py``'s ``psalm_finetune_mask`` (the adapters and
+every module but the tower and Phi's base).
+
+Not ported (``ROADMAP.md``): per-point window radii (the pixel decoder
+raises), data parallelism and ZeRO sharding, and orbax checkpoints
+(``torch.save`` files instead).
 
 Two differences from JAX's trainer, both on the mm_conv loss: the port runs
-it with the tower frozen (JAX calls the model with ``train=False`` there, so
-its tower takes that loss's gradient), and only that loss computes the
+it with the tower frozen unless ``--train_backbone`` (JAX calls the model
+with ``train=False`` there, so its tower always takes that loss's
+gradient), and only that loss computes the
 ``lm_head`` logits (JAX computes them in every seg step too, where no loss
 reads them: they get zero gradients, which leave them unchanged).
 """
@@ -38,11 +58,17 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from psalm_tpu_torch.config import PSALMConfig, SegTask
+from psalm_tpu_torch.config import PSALMConfig, SegTask, config_from_json
 from psalm_tpu_torch.data.constants import IGNORE_INDEX
-from psalm_tpu_torch.data.datasets import UnifiedTaskSampler, collate
+from psalm_tpu_torch.data.datasets import (DataConfig, InstanceDataset,
+                                           InteractiveDataset, MMConvDataset,
+                                           PanopticDataset, ReferringDataset,
+                                           SemanticDataset, UnifiedTaskSampler,
+                                           collate)
 from psalm_tpu_torch.models.psalm import PSALM, init_weights_
-from psalm_tpu_torch.train.criterion import PSALMCriterion, UniformFn, default_uniform
+from psalm_tpu_torch.ops.sampling import UniformFn, default_uniform
+from psalm_tpu_torch.train.criterion import PSALMCriterion
+from psalm_tpu_torch.train.lora import psalm_finetune_mask
 from psalm_tpu_torch.train.train_step import (TrainState, make_optimizer,
                                               train_step)
 
@@ -67,21 +93,53 @@ def str2bool(text: str) -> bool:
 
 
 def parse_args(argv=None):
-    """psalm_tpu's training arguments that the Trainer reads (the dataset
-    and checkpoint paths wait with the dataset classes)."""
+    """psalm_tpu's training arguments, and ``--device``, ``--train_backbone``,
+    ``--lora_rank`` and ``--lora_alpha``."""
     p = argparse.ArgumentParser()
+    p.add_argument("--model_name_or_path", default=None,
+                   help="released-format PSALM checkpoint directory to "
+                        "initialize from (models/builder.py; its "
+                        "psalm_tpu_config.json, if any, is the base config); "
+                        "random weights from --seed without one")
+    p.add_argument("--mask2former_ckpt", default=None,
+                   help="parsed and unused, as in psalm_tpu (a Mask2Former "
+                        "Swin-B .pkl)")
     p.add_argument("--output_dir", required=True)
+    p.add_argument("--panoptic_json_path", default=None,
+                   help="COCO root with train2017/, panoptic_train2017/ and "
+                        "annotations/panoptic_train2017.json")
+    p.add_argument("--instance_json_path", default=None)
+    p.add_argument("--semantic_json_path", default=None)
+    p.add_argument("--semantic_label_folder", default=None)
+    p.add_argument("--region_json_path", default=None)
+    p.add_argument("--ref_coco_path", default=None)
+    p.add_argument("--mmconv_path", default=None)
+    p.add_argument("--image_folder", default=None)
     p.add_argument("--seg_task", default="panoptic")
+    p.add_argument("--data_ratio", default="1||1||1||1",
+                   help="panoptic/instance/semantic||region||referring||"
+                        "mm_conv batch ratios")
     p.add_argument("--learning_rate", type=float, default=6e-5)
     p.add_argument("--warmup_ratio", type=float, default=0.03)
     p.add_argument("--weight_decay", type=float, default=0.0)
     p.add_argument("--num_train_steps", type=int, default=100000)
     p.add_argument("--per_device_train_batch_size", type=int, default=4)
+    p.add_argument("--dataloader_num_workers", type=int, default=4,
+                   help="mapper threads of the prefetching loader "
+                        "(data/prefetch.py); 0 = synchronous")
+    p.add_argument("--model_max_length", type=int, default=2048)
     p.add_argument("--save_steps", type=int, default=15000)
     p.add_argument("--save_total_limit", type=int, default=1)
     p.add_argument("--logging_steps", type=int, default=10)
     p.add_argument("--gradient_checkpointing", type=str2bool, default=True)
     p.add_argument("--bf16", type=str2bool, default=True)
+    p.add_argument("--profile_steps", default=None,
+                   help="e.g. '10,15': trace steps 10-15 with torch.profiler "
+                        "into a Chrome trace in output_dir")
+    p.add_argument("--report_to", default="none",
+                   choices=["none", "tensorboard"],
+                   help="'tensorboard' writes the logged scalars to "
+                        "output_dir/tb (needs the tensorboard package)")
     p.add_argument("--tune_mm_mlp_adapter", type=str2bool, default=False,
                    help="stage-1 style: checkpoint only the mm_projector "
                         "(llava_trainer.py:231-256)")
@@ -93,7 +151,7 @@ def parse_args(argv=None):
                         "with full attention over the encoder tokens")
     p.add_argument("--window_point_radii", default="",
                    help="per-point clamp radii for window mode (not ported: "
-                        "the pixel decoder raises)")
+                        "the pixel decoder raises, see ROADMAP.md)")
     p.add_argument("--remat_pixel_decoder", type=int, default=-1,
                    help="1/0 = force pixel-decoder gradient checkpointing "
                         "on/off; -1 follows --gradient_checkpointing, except "
@@ -102,7 +160,20 @@ def parse_args(argv=None):
                    help="window mode: JAX's manual-VJP setting, which the "
                         "remat_pixel policy reads (the port's window "
                         "backward is K2 either way)")
+    p.add_argument("--swin_type", default="base",
+                   help="parsed and unused, as in psalm_tpu (the config's "
+                        "Swin is Swin-B)")
     p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--device", default="cuda",
+                   help="torch device to train on (cuda unless asked)")
+    p.add_argument("--train_backbone", type=str2bool, default=False,
+                   help="train the Swin tower too (PSALM(train_backbone="
+                        "True): K3's backward, drop path)")
+    p.add_argument("--lora_rank", type=int, default=0,
+                   help="> 0: LoRA adapters of this rank on Phi's linears; "
+                        "the adapters and every module but the tower and "
+                        "Phi's base train (train/lora.py)")
+    p.add_argument("--lora_alpha", type=float, default=16.0)
     return p.parse_args(argv)
 
 
@@ -136,12 +207,20 @@ def llm_ce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return torch.sum(nll * valid) / valid.sum().clamp(min=1)
 
 
-def build_train_config(args) -> PSALMConfig:
+def build_train_config(args, base: Optional[PSALMConfig] = None
+                       ) -> PSALMConfig:
     """PSALMConfig from CLI args (the reference's training_args -> cfg path,
-    train.py:23-35), as ``psalm_tpu``'s builds it."""
-    cfg = PSALMConfig(
+    train.py:23-35), as ``psalm_tpu``'s builds it, on ``base`` (a
+    checkpoint's own config; ``PSALMConfig()`` by default), with the LoRA
+    rank and alpha of ``--lora_rank`` / ``--lora_alpha``."""
+    cfg = (base or PSALMConfig()).replace(
         seg_task=SegTask(args.seg_task),
         compute_dtype="bfloat16" if args.bf16 else "float32")
+    rank = int(getattr(args, "lora_rank", 0))
+    if rank > 0:
+        cfg = cfg.replace(phi=dataclasses.replace(
+            cfg.phi, lora_rank=rank,
+            lora_alpha=float(getattr(args, "lora_alpha", 16.0))))
     mode = getattr(args, "pixel_decoder_mode", "deformable")
     if mode != "deformable":
         kw = dict(attention_mode=mode)
@@ -187,11 +266,28 @@ def _checkpoints(output_dir: str):
                   key=lambda d: int(d.split("-")[1]))
 
 
+def trainable_mask(model: PSALM) -> Dict[str, bool]:
+    """Which parameters a Trainer trains: every one but the frozen vision
+    tower's; with LoRA (``cfg.phi.lora_rank`` > 0) ``psalm_finetune_mask``'s
+    (the adapters and every module but the tower and Phi's base); the
+    tower's too when ``model.train_backbone``."""
+    names = [n for n, _ in model.named_parameters()]
+    if model.cfg.phi.lora_rank > 0:
+        mask = psalm_finetune_mask(names)
+    else:
+        mask = {n: not n.startswith("model.vision_tower.") for n in names}
+    if model.train_backbone:
+        mask.update({n: True for n in names
+                     if n.startswith("model.vision_tower.")})
+    return mask
+
+
 class Trainer:
     """Trains ``model`` (a PSALM built here from ``cfg`` with random
     weights drawn from ``args.seed`` when none is given) on ``device``.
     ``uniform_fn`` replaces the criterion's point draws (the tests inject
-    JAX's). The frozen vision tower is left out of the optimizer."""
+    JAX's). The optimizer takes ``trainable_mask``'s parameters; the others
+    are frozen (``requires_grad_(False)``) and get no optimizer state."""
 
     def __init__(self, args, cfg: Optional[PSALMConfig] = None,
                  model: Optional[PSALM] = None, device="cuda",
@@ -203,15 +299,21 @@ class Trainer:
             dtype = torch.bfloat16 if args.bf16 else torch.float32
             model = PSALM(self.cfg, dtype=dtype, device=self.device,
                           remat=args.gradient_checkpointing,
-                          remat_pixel=remat_pixel_policy(args, self.cfg))
+                          remat_pixel=remat_pixel_policy(args, self.cfg),
+                          train_backbone=getattr(args, "train_backbone",
+                                                 False))
             init_weights_(model, torch.Generator(device=self.device)
                           .manual_seed(args.seed))
         self.model = model.train()
         self.criterion = PSALMCriterion(self.cfg.loss,
                                         self.cfg.mask_decoder.num_queries,
                                         uniform_fn=uniform_fn)
-        self.trainable = [(n, p) for n, p in self.model.named_parameters()
-                          if not n.startswith("model.vision_tower.")]
+        mask = trainable_mask(self.model)
+        self.trainable = []
+        for n, p in self.model.named_parameters():
+            p.requires_grad_(mask[n])
+            if mask[n]:
+                self.trainable.append((n, p))
         self.optimizer = make_optimizer(
             [p for _, p in self.trainable], args.learning_rate,
             args.num_train_steps, args.warmup_ratio, args.weight_decay)
@@ -224,7 +326,8 @@ class Trainer:
 
     def _seg_loss_fn(self, task_kwargs):
         def loss_fn(batch, generator):
-            out = self.model(batch, train=True, **task_kwargs)
+            out = self.model(batch, train=True, generator=generator,
+                             **task_kwargs)
             targets = {"masks": batch["gt_masks"], "labels": batch["gt_labels"],
                        "valid": batch["gt_valid"]}
             losses = self.criterion(
@@ -238,6 +341,8 @@ class Trainer:
         return loss_fn
 
     def _mm_conv_loss_fn(self):
+        # no generator: a training tower runs deterministically here, as
+        # JAX's train=False call runs it
         def loss_fn(batch, generator):
             out = self.model(batch, use_class_names=False, train=True,
                              compute_logits=True)
@@ -320,25 +425,182 @@ class Trainer:
 
     def train(self, sampler: UnifiedTaskSampler) -> TrainState:
         """Steps from the last checkpoint (or 0) to ``num_train_steps``,
-        batches drawn from ``sampler`` and collated in turn."""
+        batches drawn from ``sampler`` and collated: through a
+        ``PrefetchLoader`` with ``dataloader_num_workers`` > 0, else in
+        turn."""
         args = self.args
         start_step = self.try_resume()
         os.makedirs(args.output_dir, exist_ok=True)
-        log_path = os.path.join(args.output_dir, "train_log.jsonl")
-        t0 = time.time()
-        for step in range(start_step, args.num_train_steps):
-            batch_np = collate(sampler.next_batch())
-            metrics = self.step(batch_np)
-            if step % args.logging_steps == 0:
-                logged = self.history.update(
-                    {k: float(v) for k, v in metrics.items()})
-                logged.update(step=step, dataset_type=batch_np["dataset_type"],
-                              steps_per_sec=(step - start_step + 1)
-                              / (time.time() - t0))
-                print(json.dumps(logged))
-                with open(log_path, "a") as f:
-                    f.write(json.dumps(logged) + "\n")
-            if step > 0 and step % args.save_steps == 0:
-                self.save(step)
+        n_workers = getattr(args, "dataloader_num_workers", 0)
+        loader = None
+        if n_workers > 0:
+            from psalm_tpu_torch.data.prefetch import PrefetchLoader
+            loader = PrefetchLoader(sampler, collate, num_workers=n_workers,
+                                    num_batches=args.num_train_steps
+                                    - start_step)
+        tb_writer = None
+        try:
+            if getattr(args, "report_to", "none") == "tensorboard":
+                tb_writer = summary_writer(os.path.join(args.output_dir, "tb"))
+            self._train_loop(loader, sampler, tb_writer, start_step)
+        finally:
+            if loader is not None:
+                loader.close()
+            if tb_writer is not None:
+                tb_writer.close()
         self.save(args.num_train_steps)
         return self.state
+
+    def _train_loop(self, loader, sampler, tb_writer, start_step: int):
+        args = self.args
+        log_path = os.path.join(args.output_dir, "train_log.jsonl")
+        profile_range = (tuple(int(s) for s in args.profile_steps.split(","))
+                         if getattr(args, "profile_steps", None) else None)
+        profiler = None
+        t0 = time.time()
+        try:
+            for step in range(start_step, args.num_train_steps):
+                batch_np = (next(loader) if loader is not None
+                            else collate(sampler.next_batch()))
+                if profile_range and step == profile_range[0]:
+                    profiler = self._start_profiler()
+                metrics = self.step(batch_np)
+                if profiler is not None and step == profile_range[1]:
+                    self._stop_profiler(profiler, profile_range)
+                    profiler = None
+                if step % args.logging_steps == 0:
+                    logged = self.history.update(
+                        {k: float(v) for k, v in metrics.items()})
+                    logged.update(step=step,
+                                  dataset_type=batch_np["dataset_type"],
+                                  steps_per_sec=(step - start_step + 1)
+                                  / (time.time() - t0))
+                    print(json.dumps(logged))
+                    with open(log_path, "a") as f:
+                        f.write(json.dumps(logged) + "\n")
+                    if tb_writer is not None:
+                        for k, v in logged.items():
+                            if isinstance(v, (int, float)):
+                                tb_writer.add_scalar(k, v, global_step=step)
+                if step > 0 and step % args.save_steps == 0:
+                    self.save(step)
+        finally:
+            if profiler is not None:  # the run ended inside the range
+                self._stop_profiler(profiler, profile_range)
+
+    def _start_profiler(self):
+        """torch.profiler over the CPU and, on the card, CUDA activities
+        (``jax.profiler.start_trace``'s counterpart)."""
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        profiler = profile(activities=activities)
+        profiler.__enter__()
+        return profiler
+
+    def _stop_profiler(self, profiler, profile_range) -> str:
+        """Waits for the device, as JAX blocks on the step's metrics before
+        ``stop_trace``, and writes the Chrome trace
+        ``output_dir/trace_steps_{a}_{b}.json``."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        profiler.__exit__(None, None, None)
+        path = os.path.join(self.args.output_dir, "trace_steps_%d_%d.json"
+                            % profile_range)
+        profiler.export_chrome_trace(path)
+        print(f"profiler trace of steps {profile_range[0]}-"
+              f"{profile_range[1]} written to {path}")
+        return path
+
+
+def summary_writer(log_dir: str):
+    """``torch.utils.tensorboard.SummaryWriter`` on ``log_dir``; an
+    ``ImportError`` that names the package when tensorboard is missing."""
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError as e:
+        raise ImportError("--report_to tensorboard needs the tensorboard "
+                          f"package, which does not import: {e}") from e
+    return SummaryWriter(log_dir=log_dir)
+
+
+def build_datasets(args, tokenizer, dcfg: DataConfig):
+    """The dataset of each path given, with its ``--data_ratio`` share
+    (``psalm_tpu/train/train.py::main``'s rule: panoptic, instance and
+    semantic take the first ratio, region the second, referring the third,
+    mm_conv the fourth). Returns (datasets, ratios)."""
+    datasets, ratios = [], []
+    ratio_vals = [int(r) for r in args.data_ratio.split("||")]
+    if args.panoptic_json_path:
+        datasets.append(PanopticDataset(args.panoptic_json_path, tokenizer,
+                                        dcfg, shuffle_classes=True))
+        ratios.append(ratio_vals[0] if ratio_vals else 1)
+    if args.instance_json_path:
+        datasets.append(InstanceDataset(args.instance_json_path,
+                                        args.image_folder, tokenizer, dcfg))
+        ratios.append(ratio_vals[0] if ratio_vals else 1)
+    if args.semantic_json_path:
+        datasets.append(SemanticDataset(args.semantic_json_path,
+                                        args.image_folder,
+                                        args.semantic_label_folder,
+                                        tokenizer, dcfg))
+        ratios.append(ratio_vals[0] if ratio_vals else 1)
+    if args.region_json_path:
+        datasets.append(InteractiveDataset(args.region_json_path,
+                                           args.image_folder, tokenizer, dcfg))
+        ratios.append(ratio_vals[min(1, len(ratio_vals) - 1)])
+    if args.ref_coco_path:
+        datasets.append(ReferringDataset(args.ref_coco_path, args.image_folder,
+                                         tokenizer, dcfg))
+        ratios.append(ratio_vals[min(2, len(ratio_vals) - 1)])
+    if args.mmconv_path:
+        datasets.append(MMConvDataset(args.mmconv_path, args.image_folder,
+                                      tokenizer, dcfg))
+        ratios.append(ratio_vals[min(3, len(ratio_vals) - 1)])
+    if not datasets:
+        raise ValueError("no training data: give at least one of the "
+                         "--*_json_path, --ref_coco_path or --mmconv_path")
+    return datasets, ratios
+
+
+def main(argv=None, tokenizer=None) -> TrainState:
+    """The training command line (``psalm_tpu/train/train.py::main``).
+    ``tokenizer``: the one the datasets encode with (the tests inject one);
+    without it, ``transformers.AutoTokenizer`` from
+    ``--model_name_or_path`` with "[SEG]" added."""
+    args = parse_args(argv)
+    if tokenizer is None:
+        from transformers import AutoTokenizer
+        tokenizer = AutoTokenizer.from_pretrained(args.model_name_or_path)
+        tokenizer.add_tokens("[SEG]")
+    base = None
+    if args.model_name_or_path:
+        cfg_path = os.path.join(args.model_name_or_path,
+                                "psalm_tpu_config.json")
+        if os.path.exists(cfg_path):
+            with open(cfg_path) as f:
+                base = config_from_json(f.read())
+    cfg = build_train_config(args, base)
+    dcfg = DataConfig(image_size=cfg.image_size,
+                      num_image_tokens=(cfg.image_size // 64) ** 2,
+                      num_seg_queries=cfg.mask_decoder.num_queries,
+                      pad_len=args.model_max_length)
+    datasets, ratios = build_datasets(args, tokenizer, dcfg)
+    sampler = UnifiedTaskSampler(datasets, args.per_device_train_batch_size,
+                                 ratios, seed=args.seed)
+    model = None
+    if args.model_name_or_path:
+        from psalm_tpu_torch.models.builder import load_pretrained_model
+        _, model, _ = load_pretrained_model(
+            args.model_name_or_path, cfg=cfg,
+            dtype=torch.bfloat16 if args.bf16 else torch.float32,
+            param_dtype=torch.float32, device=args.device,
+            lora_seed=args.seed, remat=args.gradient_checkpointing,
+            remat_pixel=remat_pixel_policy(args, cfg),
+            train_backbone=args.train_backbone)
+    return Trainer(args, cfg, model=model, device=args.device).train(sampler)
+
+
+if __name__ == "__main__":
+    main()

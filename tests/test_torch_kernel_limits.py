@@ -1,7 +1,7 @@
-"""The per-element limits that K1, K2 and K3 are held to on the card
-(``ms_deform_attn_limit``, ``ms_deform_attn_bwd_limit``,
-``window_attention_limit``), held against plain-torch emulations of the
-kernels' arithmetic on the CPU.
+"""The per-element limits that K1, K2, K3 and K3's backward are held to on
+the card (``ms_deform_attn_limit``, ``ms_deform_attn_bwd_limit``,
+``window_attention_limit``, ``window_attention_bwd_limit``), held against
+plain-torch emulations of the kernels' arithmetic on the CPU.
 
 The bf16 tensor-core K3 (``csrc/swin_attention.cu``) rounds q * scale and
 P to bf16 where the twin does, sums S and P v in f32 in another order, and
@@ -21,6 +21,15 @@ the bias, K1 with its bilinear fractions swapped, K2 with d loc_x on fx's
 stencil or d value scattered with two corners' weights swapped) fail them
 by more than 10x, as the mutants of ``tools/kernel_mutants.py`` must on
 the card.
+
+K3's backward (``csrc/swin_attention_bwd.cu``) rounds where autograd
+through the twin rounds in bf16 (q * scale, dP = dO v^T, P before P^T dO,
+dS K and its product with the scale, dS^T (q scale)) and sums in f32 in
+another order (d bias over the windows by atomics); its limit allows one
+bf16 step of the output plus 2^-8 of the magnitude of the products whose
+rounded operand may fall the other way (``window_attention_bwd_magnitude``).
+Its broken versions drop rowsum(P o dP) from dS, or leave d bias one
+window's dS instead of the sum over the windows.
 """
 
 import math
@@ -127,6 +136,114 @@ def test_k3_f32_limit_and_magnitude_definitions():
     torch.testing.assert_close(
         mag, (p @ v.abs()).transpose(1, 2).reshape(Bn, N, C), rtol=1e-5,
         atol=1e-6)
+
+
+def emulate_k3_bwd(qkv, bias, mask, h, scale, dout, mutant=None):
+    """K3's backward's arithmetic in qkv's type: q * scale rounded, P in
+    f32 (recomputed), dP = dO v^T summed in f32 and rounded, rowsum(P o dP)
+    summed over 16-key chunks, dS in f32, dq = rnd(rnd(dS k) scale), dk =
+    rnd(dS^T (q scale)), dv = rnd(rnd(P)^T dO), d bias summed over the
+    windows in reverse order. ``mutant``: "no_rowsum" (dS = P o dP) or
+    "unsummed" (d bias = the last window's dS)."""
+    dt = qkv.dtype
+
+    def rnd(x):
+        return x.to(dt).float()
+
+    Bn, N, C3 = qkv.shape
+    C = C3 // 3
+    hd = C // h
+    q, k, v = (qkv[:, :, i * C:(i + 1) * C].reshape(Bn, N, h, hd).float()
+               for i in range(3))
+    qs = rnd(q * scale)
+    do = dout.reshape(Bn, N, h, hd).float()
+    s = torch.einsum("bnhd,bmhd->bhnm", qs, k) + bias[None]
+    if mask is not None:
+        nW = mask.shape[0]
+        s = (s.reshape(Bn // nW, nW, h, N, N)
+             + mask[None, :, None]).reshape(Bn, h, N, N)
+    p = torch.softmax(s, -1)
+    dp = rnd(torch.einsum("bnhd,bmhd->bhnm", do, v))
+    dsum = sum((p[..., j:j + 16] * dp[..., j:j + 16]).sum(-1, keepdim=True)
+               for j in range(0, N, 16))
+    ds = p * dp if mutant == "no_rowsum" else p * (dp - dsum)
+    dq = rnd(rnd(torch.einsum("bhnm,bmhd->bnhd", ds, k)) * scale)
+    dk = rnd(torch.einsum("bhnm,bnhd->bmhd", ds, qs))
+    dv = rnd(torch.einsum("bhnm,bnhd->bmhd", rnd(p), do))
+    dqkv = torch.cat([t.reshape(Bn, N, C) for t in (dq, dk, dv)], -1)
+    dbias = ds[-1] if mutant == "unsummed" else ds.flip(0).sum(0)
+    return dqkv.to(dt), dbias
+
+
+def _k3_bwd_worst(qkv, bias, mask, h, dout, got):
+    """The worst share of its limit over d qkv and d bias."""
+    scale = (qkv.shape[2] // 3 // h) ** -0.5
+    want = sa.window_attention_bwd_ref(qkv, bias, mask, h, scale, dout)
+    mags = sa.window_attention_bwd_magnitude(qkv, bias, mask, h, scale, dout)
+    return max(((g.float() - w.float()).abs()
+                / sa.window_attention_bwd_limit(w, m, qkv.dtype)).max().item()
+               for g, w, m in zip(got, want, mags))
+
+
+def _k3_bwd_case(N, C, h, ws, dtype):
+    qkv, bias, mask = _swin_inputs(N, C, h, ws)
+    dout = torch.from_numpy(np.random.default_rng(N + 1).standard_normal(
+        (qkv.shape[0], N, C)).astype(np.float32))
+    return qkv.to(dtype), bias, mask, dout.to(dtype)
+
+
+K3_BWD_CASES = [(w, dt) for w in WINDOWS
+                for dt in (torch.bfloat16, torch.float32)]
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("window,dtype", K3_BWD_CASES)
+def test_emulated_k3_backward_lies_within_the_limit(window, dtype, masked):
+    N, C, h, ws = window
+    qkv, bias, mask, dout = _k3_bwd_case(N, C, h, ws, dtype)
+    m = mask if masked else None
+    got = emulate_k3_bwd(qkv, bias, m, h, (C // h) ** -0.5, dout)
+    assert _k3_bwd_worst(qkv, bias, m, h, dout, got) <= 1.0
+
+
+@pytest.mark.parametrize("mutant", ["no_rowsum", "unsummed"])
+@pytest.mark.parametrize("window,dtype", K3_BWD_CASES)
+def test_k3_backward_mutants_fail_the_limit(window, dtype, mutant):
+    N, C, h, ws = window
+    qkv, bias, mask, dout = _k3_bwd_case(N, C, h, ws, dtype)
+    got = emulate_k3_bwd(qkv, bias, mask, h, (C // h) ** -0.5, dout, mutant)
+    assert _k3_bwd_worst(qkv, bias, mask, h, dout, got) > 10.0
+
+
+def test_k3_backward_limit_and_magnitude_definitions():
+    """The limit is the forward's formula; the magnitudes are scale M dS
+    |k|, M dS^T |q scale|, P^T |dO| and the sum of M dS over the windows,
+    M dS = P (|dP| + rowsum(P |dP|)), on whole matrices."""
+    N, C, h, ws = WINDOWS[1]
+    qkv, bias, mask, dout = _k3_bwd_case(N, C, h, ws, torch.float32)
+    scale = (C // h) ** -0.5
+    want = sa.window_attention_bwd_ref(qkv, bias, mask, h, scale, dout)
+    mags = sa.window_attention_bwd_magnitude(qkv, bias, mask, h, scale, dout)
+    for w, m in zip(want, mags):
+        for dt in (torch.bfloat16, torch.float32):
+            torch.testing.assert_close(sa.window_attention_bwd_limit(w, m, dt),
+                                       sa.window_attention_limit(w, m, dt))
+    Bn, hd = qkv.shape[0], C // h
+    q, k, v = (qkv[:, :, i * C:(i + 1) * C].reshape(Bn, N, h, hd)
+               .transpose(1, 2) for i in range(3))
+    do = dout.reshape(Bn, N, h, hd).transpose(1, 2)
+    s = q @ k.transpose(-1, -2) * scale + bias[None]
+    s = (s.reshape(Bn // mask.shape[0], mask.shape[0], h, N, N)
+         + mask[None, :, None]).reshape(Bn, h, N, N)
+    p = torch.softmax(s, -1)
+    dp = (do @ v.transpose(-1, -2)).abs()
+    mds = p * (dp + (p * dp).sum(-1, keepdim=True))
+    parts = [mds @ k.abs() * scale, mds.transpose(-1, -2) @ (q * scale).abs(),
+             p.transpose(-1, -2) @ do.abs()]
+    torch.testing.assert_close(mags[0], torch.cat(
+        [t.transpose(1, 2).reshape(Bn, N, C) for t in parts], -1),
+        rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(mags[1], mds.sum(0), rtol=1e-5, atol=1e-5)
 
 
 def _deform_inputs(seed=0, D=8):

@@ -32,7 +32,8 @@ def test_no_jax_behind_the_package():
               "eval.eval_davis", "serve.segmentation", "serve.controller",
               "serve.web_server", "serve.cli", "serve.register_worker",
               "serve.moderation", "serve.test_message",
-              "checkpoint.weight_tools", "checkpoint.from_jax"):
+              "checkpoint.weight_tools", "checkpoint.from_jax",
+              "data.prefetch", "train.lora"):
         assert f"psalm_tpu_torch.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -391,6 +392,32 @@ def test_backward_wrappers_dispatch_like_the_forwards(monkeypatch):
                                             causal=False, sm_scale=1.0)
 
 
+def test_k3_backward_dispatches_like_the_forward(monkeypatch):
+    """K3's backward: the plain twin for CPU tensors (no launch counted);
+    on any other device the kernel loader, for the backward wrapper and
+    for a forward whose input needs a gradient (the autograd Function)."""
+    n = swin_attention.BWD_LAUNCHES
+    qkv, bias, mask, h, scale = _swin_args()
+    dout = torch.randn(qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3)
+    got = swin_attention.window_attention_bwd(qkv, bias, mask, h, scale, dout)
+    want = swin_attention.window_attention_bwd_ref(qkv, bias, mask, h, scale,
+                                                   dout)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert swin_attention.BWD_LAUNCHES == n
+
+    def loader():
+        raise RuntimeError("kernel loader reached")
+
+    monkeypatch.setattr(_build, "library", loader)
+    mq, mb, mm, _, _ = _swin_args("meta")
+    with pytest.raises(RuntimeError, match="kernel loader reached"):
+        swin_attention.window_attention_bwd(mq, mb, mm, h, scale,
+                                            dout.to("meta"))
+    monkeypatch.setattr(swin_attention, "_check_inputs", lambda *a: None)
+    with pytest.raises(RuntimeError, match="kernel loader reached"):
+        swin_attention.window_attention(mq.requires_grad_(), mb, mm, h, scale)
+
+
 def test_forwards_keep_what_their_backward_needs_only_under_grad():
     """With a gradient to compute, flash_attention saves the log-sum-exp
     and its backward runs (the plain versions here); without, the call is
@@ -404,6 +431,37 @@ def test_forwards_keep_what_their_backward_needs_only_under_grad():
         out = flash_attention.flash_attention(q, k, v, causal=False,
                                               sm_scale=0.3)
     assert out.grad_fn is None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_backward_matches_its_plain_twin_on_the_card(dtype):
+    """K3's backward against autograd through window_attention_ref, with and
+    without the shift mask, at N = 16 (head dim 16) and N = 49 (head dim
+    32): every element of d qkv and d bias within
+    ``window_attention_bwd_limit``; and through the autograd Function,
+    the gradient of a forward equals the backward wrapper's."""
+    _require_card()
+    n = swin_attention.BWD_LAUNCHES
+    for N, C, h in ((16, 32, 2), (49, 128, 4)):
+        for masked in (False, True):
+            qkv, bias, mask, _, _ = _swin_args("cuda", dtype, N=N, C=C, h=h)
+            args = (qkv, bias, mask if masked else None, h, (C // h) ** -0.5)
+            dout = torch.randn(qkv.shape[0], N, C, device="cuda").to(dtype)
+            got = swin_attention.window_attention_bwd(*args, dout)
+            want = swin_attention.window_attention_bwd_ref(*args, dout)
+            mags = swin_attention.window_attention_bwd_magnitude(*args, dout)
+            for a, b, m in zip(got, want, mags):
+                limit = swin_attention.window_attention_bwd_limit(b, m, dtype)
+                assert ((a.float() - b.float()).abs() <= limit).all(), \
+                    (N, masked)
+            leaves = [t.detach().clone().requires_grad_() for t in args[:2]]
+            out = swin_attention.window_attention(*leaves, *args[2:])
+            grads = torch.autograd.grad(out, leaves, dout)
+            for a, b, m in zip(grads, want, mags):
+                limit = swin_attention.window_attention_bwd_limit(b, m, dtype)
+                assert ((a.float() - b.float()).abs() <= limit).all()
+    assert swin_attention.BWD_LAUNCHES == n + 8
 
 
 @pytest.mark.gpu

@@ -201,15 +201,19 @@ def test_quant4_dense_matches_jax(layer_params, storage):
 
 def test_native_storage_and_lora_raise():
     """Storage "native" is ported (the layer builds; an unknown storage
-    raises, in the layer and in the quantizer); LoRA is not."""
+    raises, in the layer and in the quantizer); LoRA builds over a float or
+    int8 base (tests/test_torch_lora.py) and raises over an int4 one."""
     assert quant.Quant4Dense(IN_F, OUT_F, storage="native").storage == "native"
     with pytest.raises(ValueError, match="int4 storage"):
         quant.Quant4Dense(IN_F, OUT_F, storage="nibbles")
     with pytest.raises(ValueError, match="int4 storage"):
         quant.quantize_phi_int4({}, storage="nibbles")
     cfg = tconfig.PhiConfig(hidden_size=64, num_heads=4, lora_rank=4)
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        quant.make_dense(cfg, 64, 64)
+    assert isinstance(quant.make_dense(cfg, 64, 64).base, quant.Dense)
+    cfg8 = dataclasses.replace(cfg, quant_bits=8)
+    assert isinstance(quant.make_dense(cfg8, 64, 64).base, quant.QuantDense)
+    with pytest.raises(ValueError, match="LoRA"):
+        quant.make_dense(dataclasses.replace(cfg, quant_bits=4), 64, 64)
 
 
 @pytest.fixture(scope="module")

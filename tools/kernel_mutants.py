@@ -25,7 +25,13 @@ exits nonzero if a mutant passed.
   k3_no_bias         the bf16 tensor-core K3 without the relative-position
                      bias (check_k3);
   k4_high_scale_low  K4 reading the high half's group scale from the low
-                     half's row (check_k4).
+                     half's row (check_k4);
+  k3_bwd_no_rowsum   K3's backward with rowsum(P o dP) dropped from dS =
+                     P o (dP - rowsum(P o dP)), in both passes
+                     (check_k3_bwd);
+  k3_bwd_unsummed    K3's backward storing each window's dS into d bias in
+                     place of adding it, so d bias is one window's and not
+                     the sum over the windows (check_k3_bwd).
 """
 
 import os
@@ -77,6 +83,15 @@ MUTANTS = {
         (f"{CSRC}/int4_matvec.cu",
          "static_cast<long long>((half + r) / group) * N + n0;",
          "static_cast<long long>(r / group) * N + n0;")]),
+    "k3_bwd_no_rowsum": ("check_k3_bwd", "swin_attention", [
+        (f"{CSRC}/swin_attention_bwd.cu",
+         "const float ds = p * (dp - dsum);", "const float ds = p * dp;"),
+        (f"{CSRC}/swin_attention_bwd.cu",
+         "const float ds = p * (dp - row_dot[i]);",
+         "const float ds = p * dp;")]),
+    "k3_bwd_unsummed": ("check_k3_bwd", "swin_attention", [
+        (f"{CSRC}/swin_attention_bwd.cu", "atomicAdd(dbh + at, ds);",
+         "dbh[at] = ds;")]),
 }
 
 
