@@ -600,7 +600,8 @@ def check_k3_bwd(torch, swin_attention, records, stages=SWIN_B_STAGES):
     """K3's backward at each Swin-B stage of a 1024^2 image, with and
     without the shift mask, bf16 and f32: every element of d qkv and d bias
     within ``window_attention_bwd_limit`` of the twin (autograd through
-    ``window_attention_ref``, its bf16 products summed in f32)."""
+    ``window_attention_ref``, its bf16 products summed in f32); and at
+    stage 0 with the shift mask, two bf16 calls give the same bits."""
     matmul = torch.backends.cuda.matmul
     reduced = matmul.allow_bf16_reduced_precision_reduction
     matmul.allow_bf16_reduced_precision_reduction = False
@@ -652,6 +653,14 @@ def _check_k3_bwd(torch, swin_attention, records, stages):
                         f"{'shift-mask' if m is not None else 'no-mask'}")
                 err, tol, worst = hold_k3_bwd(torch, swin_attention, name,
                                               args, dout)
+                if stage == 0 and dtype == torch.bfloat16 and m is not None:
+                    twice = [swin_attention.window_attention_bwd(*args, dout)
+                             for _ in range(2)]
+                    if not all(torch.equal(a, b) for a, b in zip(*twice)):
+                        fail(f"{name}: two calls on the same inputs differ")
+                    log(f"  {name}: two calls give the same bits in d qkv "
+                        "and d bias")
+                    del twice
                 # the library: SDPA's backward with a float mask that needs
                 # its gradient (bias + shift mask, one [N, N] per window)
                 q, k, v = (t.reshape(nW, N, h, hd).transpose(1, 2)
@@ -766,9 +775,18 @@ def check_k4(torch, int4_matvec, records):
                     return int4_matvec.int4_matvec(x, packed, scale, group,
                                                    weight_checked=True)
 
-                events, _ = device_trace(
-                    lambda: [call() for _ in range(K4_TRACED_CALLS)], name)
-                names = sorted({e.name for e in events})
+                # the profiler now and then loses some of a trace's events
+                # (4 of 10 once on an H100): a trace with fewer events than
+                # calls, all of them K4's, is taken again, up to 5 times
+                for _ in range(5):
+                    events, _ = device_trace(
+                        lambda: [call() for _ in range(K4_TRACED_CALLS)], name)
+                    names = sorted({e.name for e in events})
+                    if len(events) >= K4_TRACED_CALLS or not all(
+                            "int4_matvec_kernel" in n for n in names):
+                        break
+                    log(f"  ({name}: {len(events)} device events in "
+                        f"{K4_TRACED_CALLS} calls, all K4's: traced again)")
                 if len(events) != K4_TRACED_CALLS or not all(
                         "int4_matvec_kernel" in n for n in names):
                     fail(f"{name}: {len(events)} device events in "
@@ -955,11 +973,15 @@ def check_k5_bwd(torch, flash_attention, records):
 
 
 # the bf16 tensor-core kernels, each at every head dim it is instantiated
-# for: K5's forward, dK/dV and dQ, and K3
+# for: K5's forward, dK/dV and dQ, K3 and K3's backward
 TENSOR_CORE_KERNELS = {"flash_attention_tc_kernel": (32, 64, 128),
                        "flash_bwd_dkv_tc_kernel": (32, 64, 128),
                        "flash_bwd_dq_tc_kernel": (32, 64, 128),
-                       "window_attention_tc_kernel": (16, 32)}
+                       "window_attention_tc_kernel": (16, 32),
+                       "window_attention_bwd_tc_kernel": (16, 32)}
+# K3's backward as Swin-B runs it (head dim 32, N = 144: 18 column blocks
+# of 8 keys), which must not spill
+K3_BWD_SWIN_B = r"window_attention_bwd_tc_kernelILi32ELi18E"
 
 
 def cuobjdump(nvcc):
@@ -982,8 +1004,10 @@ SAMPLER_KERNEL = (r"msdeform_(fwd|bwd)_kernelI(13__nv_bfloat16|f)Li(\d+)ELi"
 
 def check_sass(lib_path, nvcc):
     """From the built library's SASS (cuobjdump): the bf16 K5 forward, dK/dV
-    and dQ kernels and the bf16 K3 kernel hold tensor-core instructions
-    (HMMA: mma.sync; HGMMA: wgmma), at every head dim; every K1
+    and dQ kernels and the bf16 K3 kernel and its backward hold tensor-core
+    instructions (HMMA: mma.sync; HGMMA: wgmma), at every head dim, and the
+    backward as Swin-B runs it (head dim 32, N = 144) does not spill and
+    none holds atomics; every K1
     instantiation with channel vectors reads value by 16-byte loads
     (LDG.E.128) and every such K2 instantiation reduces d value by vector
     reductions only (REDG.E.ADD.F32x4, no scalar REDG); the model's K1 and
@@ -1021,6 +1045,13 @@ def check_sass(lib_path, nvcc):
                 fail(f"{kernel}<{hd}>: no HMMA/HGMMA in its SASS ({hits})")
             log(f"  {kernel}<{hd}>: {hits} tensor-core instructions "
                 f"(HMMA/HGMMA) in its SASS, per instantiation")
+    # K3's bf16 backward sums d bias per block and then in group order: no
+    # atomics or reductions to global memory
+    for f, c in counts.items():
+        if ("window_attention_bwd_tc_kernel" in f
+                or "window_bias_grad_sum_kernel" in f) and (
+                    c["atom"] or c["red_scalar"] or c["red_v4"]):
+            fail(f"{f}: atomics in K3's bf16 backward ({c})")
     sampler = {}
     for f, c in counts.items():
         found = re.search(SAMPLER_KERNEL, f)
@@ -1043,6 +1074,7 @@ def check_sass(lib_path, nvcc):
     if len(sampler) != 32:
         fail(f"{len(sampler)} K1/K2 instantiations in the library, not 32")
     usage = run("--dump-resource-usage").splitlines()
+    k3_bwd_swin_b = 0
     for i, line in enumerate(usage):
         found = re.search(r"Function (\S+):", line)
         if found and i + 1 < len(usage) and any(
@@ -1051,9 +1083,17 @@ def check_sass(lib_path, nvcc):
             res = usage[i + 1].strip()
             log(f"  {found.group(1)}: {res}")
             model = sampler.get(found.group(1))
-            if model and model[3:5] == ("3", "4") and not (
-                    "STACK:0 " in res and "LOCAL:0 " in res):
+            spills = not ("STACK:0 " in res and "LOCAL:0 " in res)
+            if model and model[3:5] == ("3", "4") and spills:
                 fail(f"{found.group(1)}: the model's K1/K2 spills ({res})")
+            if re.search(K3_BWD_SWIN_B, found.group(1)):
+                k3_bwd_swin_b += 1
+                if spills:
+                    fail(f"{found.group(1)}: K3's backward spills at N = 144"
+                         f" ({res})")
+    if k3_bwd_swin_b != 1:
+        fail(f"{k3_bwd_swin_b} Swin-B instantiations of K3's backward in the "
+             "resource usage, not 1")
 
 
 def check_small_slice(torch, np):

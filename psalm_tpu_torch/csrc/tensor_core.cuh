@@ -1,5 +1,6 @@
 // Tensor-core and asynchronous-copy helpers for the bf16 attention kernels
-// (flash_attention.cu, flash_attention_bwd.cu, swin_attention.cu): cp.async
+// (flash_attention.cu, flash_attention_bwd.cu, swin_attention.cu,
+// swin_attention_bwd.cu): cp.async
 // tile copies into shared memory, ldmatrix fragment loads and the
 // warp-level bf16 product mma.sync m16n8k16 with f32 accumulators.
 //
@@ -116,6 +117,17 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[4],
                                        int row0, int k0) {
   const int lane = threadIdx.x & 31;
   ldmatrix_x4(a, tile + (row0 + (lane & 15)) * stride + k0 + (lane >> 4) * 8);
+}
+
+// The A fragment of rows [row0, row0 + 16), depth [k0, k0 + 16) of the
+// transpose of a padded row-major tile: A[r][k] = tile[k][r], as dS^T and
+// P^T come from the row-major dS and P tiles.
+__device__ __forceinline__ void load_a_trans(uint32_t (&a)[4],
+                                             const __nv_bfloat16* tile,
+                                             int stride, int row0, int k0) {
+  const int lane = threadIdx.x & 31;
+  ldmatrix_x4_trans(a, tile + (k0 + (lane & 7) + ((lane >> 4) << 3)) * stride +
+                           row0 + ((lane >> 3) & 1) * 8);
 }
 
 // B fragments for two 8-column blocks [n0, n0 + 16) at depth [k0, k0 + 16)

@@ -51,10 +51,12 @@ SIGNATURES = {
     # qkv, bias, mask, out, dtype, Bn, N, C, nheads, nW, scale, stream
     "psalm_window_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                                    _P],
-    # qkv, bias, mask, dout, dqkv, dbias, dtype, Bn, N, C, nheads, nW, scale,
-    # stream
-    "psalm_window_attention_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                   _I, _F, _P],
+    # qkv, bias, mask, dout, dqkv, dbias, partial, dtype, Bn, N, C, nheads,
+    # nW, groups, scale, stream
+    "psalm_window_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                   _I, _I, _I, _F, _P],
+    # Bn, N, C, nheads, groups (out)
+    "psalm_window_attention_bwd_groups": [_I, _I, _I, _I, _P],
     # x, packed, scale, out, dtype, B, K, N, group, cluster, tc_count,
     # rows_per_rank, stream
     "psalm_int4_matvec": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],

@@ -21,6 +21,8 @@ twin is autograd through ``window_attention_ref``.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -39,6 +41,11 @@ BWD_LAUNCHES = 0
 HEAD_DIMS = (16, 32)
 MAX_TC_TOKENS = 192
 MAX_SHARED_BYTES = 227 * 1024
+# csrc/swin_attention_bwd.cu: the bf16 backward holds a row of S in
+# registers for up to 192 tokens, instantiated for windows padded to these
+# sizes
+MAX_TC_BWD_TOKENS = 192
+TC_BWD_PADDED = (16, 64, 144, 192)
 
 
 def _probs(qkv, bias, mask, nheads: int, scale: float):
@@ -234,9 +241,10 @@ def window_attention_bwd_limit(want: torch.Tensor, magnitude: torch.Tensor,
     the output (2^-7 |want|; d qkv is rounded once, as the twin's is), 2^-8
     of the ``magnitude`` (``window_attention_bwd_magnitude``: the bf16
     rounding of dP = dO v^T and of P may fall the other way when the f32
-    sums before it run in another order) and 1e-5. f32: 1e-5 of the output
-    and of the magnitude (f32 sums in another order; d bias over the
-    windows in the atomics' order)."""
+    sums before it run in another order, and the kernel rounds dS to bf16
+    as the operand of dq and dK, which moves it by at most 2^-9 M dS) and
+    1e-5. f32: 1e-5 of the output and of the magnitude (f32 sums in another
+    order; d bias over the windows in the atomics' order)."""
     return window_attention_limit(want, magnitude, dtype)
 
 
@@ -248,10 +256,45 @@ def _check_bwd_inputs(qkv, bias, mask, nheads, dout) -> None:
         raise ValueError(f"dout must be contiguous {qkv.dtype} "
                          f"{(Bn, N, C3 // 3)} on {qkv.device}, got "
                          f"{dout.dtype} {tuple(dout.shape)} on {dout.device}")
-    hd = C3 // 3 // nheads
-    if (4 * N * hd + 3 * N) * 4 > MAX_SHARED_BYTES:
+    if qkv.dtype == torch.bfloat16:
+        if N > MAX_TC_BWD_TOKENS:
+            raise ValueError(f"window of N={N} tokens: the bf16 backward "
+                             f"takes at most {MAX_TC_BWD_TOKENS}")
+        if dout.data_ptr() % 16:
+            raise ValueError("dout must start on a 16-byte boundary")
+    if bwd_shared_bytes(N, C3 // 3 // nheads, qkv.dtype) > MAX_SHARED_BYTES:
         raise ValueError(f"window of N={N} tokens exceeds the backward's "
                          "shared memory")
+
+
+def bwd_shared_bytes(N: int, hd: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of K3's backward kernel for windows of N
+    tokens. bf16, N padded to the instantiation's size NP: two buffers of
+    q, k, v and dO as bf16 rows of hd + 8, the P / dS tile (bf16 rows of
+    NP + 8) and, where it fits, the d bias sum (f32 rows of NP + 8); f32:
+    q scale, k, v and dO as f32 and three row vectors."""
+    if dtype != torch.bfloat16:
+        return (4 * N * hd + 3 * N) * 4
+    NP = next((p for p in TC_BWD_PADDED if N <= p), N)
+    used = 2 * (2 * 4 * NP * (hd + 8)) + 2 * NP * (NP + 8)
+    sums = 4 * NP * (NP + 8)
+    return used + sums if used + sums <= MAX_SHARED_BYTES else used
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_groups(device_index: int, Bn: int, N: int, C: int,
+               nheads: int) -> int:
+    """Window groups per head of the bf16 backward (each block sums d bias
+    over one group; the groups' partials are summed in order), as
+    csrc/swin_attention_bwd.cu plans them for the device's SMs, cached per
+    shape."""
+    lib = _build.library()
+    groups = ctypes.c_int(1)
+    with torch.cuda.device(device_index):
+        rc = lib.psalm_window_attention_bwd_groups(Bn, N, C, nheads,
+                                                   ctypes.byref(groups))
+    _build.check(lib, rc, "psalm_window_attention_bwd_groups")
+    return groups.value
 
 
 def window_attention_bwd(qkv: torch.Tensor, bias: torch.Tensor,
@@ -260,7 +303,10 @@ def window_attention_bwd(qkv: torch.Tensor, bias: torch.Tensor,
     """(d qkv [Bn, N, 3C] in qkv's type, d bias [h, N, N] f32) of
     ``window_attention`` for the output gradient ``dout`` [Bn, N, C]: the
     plain twin for a CPU tensor, else the CUDA kernel
-    (csrc/swin_attention_bwd.cu) or an error."""
+    (csrc/swin_attention_bwd.cu) or an error: bf16 on the tensor cores,
+    with d bias summed over each group of windows and then over the groups
+    in a fixed order (the same bits on every call), f32 on the CUDA
+    cores."""
     global BWD_LAUNCHES
     if qkv.device.type == "cpu":
         return window_attention_bwd_ref(qkv, bias, mask, nheads, scale, dout)
@@ -268,14 +314,25 @@ def window_attention_bwd(qkv: torch.Tensor, bias: torch.Tensor,
     _check_bwd_inputs(qkv, bias, mask, nheads, dout)
     Bn, N, C3 = qkv.shape
     dqkv = torch.empty_like(qkv)
-    dbias = torch.zeros_like(bias)  # the kernel adds every window into it
+    if qkv.dtype == torch.bfloat16:
+        # each block's d bias over its group of windows, summed in order
+        # into every element of dbias
+        groups = bwd_groups(qkv.device.index, Bn, N, C3 // 3, nheads)
+        partial = torch.empty(nheads, groups, N, N, dtype=torch.float32,
+                              device=qkv.device)
+        dbias = torch.empty_like(bias)
+    else:
+        groups, partial = 1, None
+        dbias = torch.zeros_like(bias)  # the kernel adds every window into it
     with torch.cuda.device(qkv.device):
         rc = lib.psalm_window_attention_bwd(
             qkv.data_ptr(), bias.data_ptr(),
             mask.data_ptr() if mask is not None else None, dout.data_ptr(),
-            dqkv.data_ptr(), dbias.data_ptr(), _build.DTYPE_CODES[qkv.dtype],
-            Bn, N, C3 // 3, nheads, mask.shape[0] if mask is not None else 1,
-            float(scale), _build.stream_ptr(qkv.device))
+            dqkv.data_ptr(), dbias.data_ptr(),
+            partial.data_ptr() if partial is not None else None,
+            _build.DTYPE_CODES[qkv.dtype], Bn, N, C3 // 3, nheads,
+            mask.shape[0] if mask is not None else 1, groups, float(scale),
+            _build.stream_ptr(qkv.device))
     _build.check(lib, rc, "psalm_window_attention_bwd")
     BWD_LAUNCHES += 1
     return dqkv, dbias

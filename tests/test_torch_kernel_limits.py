@@ -24,12 +24,14 @@ the card.
 
 K3's backward (``csrc/swin_attention_bwd.cu``) rounds where autograd
 through the twin rounds in bf16 (q * scale, dP = dO v^T, P before P^T dO,
-dS K and its product with the scale, dS^T (q scale)) and sums in f32 in
-another order (d bias over the windows by atomics); its limit allows one
-bf16 step of the output plus 2^-8 of the magnitude of the products whose
-rounded operand may fall the other way (``window_attention_bwd_magnitude``).
-Its broken versions drop rowsum(P o dP) from dS, or leave d bias one
-window's dS instead of the sum over the windows.
+dS K and its product with the scale, dS^T (q scale)), and in bf16 also
+rounds dS, the tensor cores' operand of dq and dK; it sums in f32 in
+another order (d bias over each group of windows, then over the groups in
+order); its limit allows one bf16 step of the output plus 2^-8 of the
+magnitude of the products whose rounded operand may fall the other way
+(``window_attention_bwd_magnitude``). Its broken versions drop
+rowsum(P o dP) from dS, or leave d bias one group's partial instead of the
+sum over the groups.
 """
 
 import math
@@ -138,13 +140,16 @@ def test_k3_f32_limit_and_magnitude_definitions():
         atol=1e-6)
 
 
-def emulate_k3_bwd(qkv, bias, mask, h, scale, dout, mutant=None):
+def emulate_k3_bwd(qkv, bias, mask, h, scale, dout, mutant=None, groups=3):
     """K3's backward's arithmetic in qkv's type: q * scale rounded, P in
     f32 (recomputed), dP = dO v^T summed in f32 and rounded, rowsum(P o dP)
-    summed over 16-key chunks, dS in f32, dq = rnd(rnd(dS k) scale), dk =
-    rnd(dS^T (q scale)), dv = rnd(rnd(P)^T dO), d bias summed over the
-    windows in reverse order. ``mutant``: "no_rowsum" (dS = P o dP) or
-    "unsummed" (d bias = the last window's dS)."""
+    summed over 16-key chunks, dS in f32; in bf16 dS rounded before dq =
+    rnd(rnd(dS k) scale) and dk = rnd(dS^T (q scale)) (the tensor-core
+    kernel's operand; f32 keeps it), dv = rnd(rnd(P)^T dO); d bias from the
+    f32 dS, summed over each of ``groups`` contiguous groups of windows (the
+    balanced split) and then over the groups in order. ``mutant``:
+    "no_rowsum" (dS = P o dP) or "unsummed" (d bias = the last group's
+    partial instead of the sum of the groups)."""
     dt = qkv.dtype
 
     def rnd(x):
@@ -167,11 +172,19 @@ def emulate_k3_bwd(qkv, bias, mask, h, scale, dout, mutant=None):
     dsum = sum((p[..., j:j + 16] * dp[..., j:j + 16]).sum(-1, keepdim=True)
                for j in range(0, N, 16))
     ds = p * dp if mutant == "no_rowsum" else p * (dp - dsum)
-    dq = rnd(rnd(torch.einsum("bhnm,bmhd->bnhd", ds, k)) * scale)
-    dk = rnd(torch.einsum("bhnm,bnhd->bmhd", ds, qs))
+    dsr = rnd(ds) if dt == torch.bfloat16 else ds
+    dq = rnd(rnd(torch.einsum("bhnm,bmhd->bnhd", dsr, k)) * scale)
+    dk = rnd(torch.einsum("bhnm,bnhd->bmhd", dsr, qs))
     dv = rnd(torch.einsum("bhnm,bnhd->bmhd", rnd(p), do))
     dqkv = torch.cat([t.reshape(Bn, N, C) for t in (dq, dk, dv)], -1)
-    dbias = ds[-1] if mutant == "unsummed" else ds.flip(0).sum(0)
+    cuts = [g * Bn // groups for g in range(groups + 1)]
+    partials = []
+    for a, b in zip(cuts[:-1], cuts[1:]):
+        part = torch.zeros(h, N, N)
+        for w in range(a, b):
+            part = part + ds[w]
+        partials.append(part)
+    dbias = partials[-1] if mutant == "unsummed" else sum(partials)
     return dqkv.to(dt), dbias
 
 
@@ -506,3 +519,29 @@ def test_k2_magnitudes_sum_absolute_terms():
     mag = msdeform.ms_deform_attn_bwd_magnitude(*args)[0][1]
     torch.testing.assert_close(mag[..., 0], want[..., 0])
     assert (mag[..., 1] > want[..., 1].abs()).all()
+
+
+def _mutants():
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools", "kernel_mutants.py")
+    spec = importlib.util.spec_from_file_location("kernel_mutants", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("name", sorted(_mutants().MUTANTS))
+def test_kernel_mutants_break_text_their_sources_hold_once(name):
+    """Each mutant of tools/kernel_mutants.py edits text that its kernel
+    source holds exactly once (the script exits on the card otherwise), and
+    its check is a function of chip_smoke.py."""
+    import chip_smoke
+    km = _mutants()
+    check, module, edits = km.MUTANTS[name]
+    assert callable(getattr(chip_smoke, check))
+    for path, old, new in edits:
+        with open(f"{km.ROOT}/{path}") as f:
+            assert f.read().count(old) == 1, (path, old)
+        assert old != new

@@ -137,8 +137,11 @@ def jax_steps(mode, tmp_dir):
     code = (f"import pickle, sys; sys.path[:0] = {paths!r}; "
             "import test_torch_train as t; "
             f"pickle.dump(t._jax_steps({mode!r}), open({out!r}, 'wb'))")
+    # about three times the 70-82 s the process took in a full run of tests/
+    # with 6 workers on 8 cores, so that a hang fails inside the run with
+    # its stderr
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                          text=True, timeout=900)
+                          text=True, timeout=250)
     assert proc.returncode == 0, proc.stderr[-3000:]
     with open(out, "rb") as f:  # written just now by the process above
         return pickle.load(f)

@@ -147,8 +147,11 @@ def jax_rounds(tmp, *args):
             "import test_torch_train_main as t; "
             f"a = pickle.load(open({inp!r}, 'rb')); "
             f"pickle.dump(t._jax_rounds(*a), open({out!r}, 'wb'))")
+    # about three times the 143 s the process took in a full run of tests/
+    # with 6 workers on 8 cores, so that a hang fails inside the run with
+    # its stderr
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                          text=True, timeout=900)
+                          text=True, timeout=450)
     assert proc.returncode == 0, proc.stderr[-3000:]
     with open(out, "rb") as f:  # written just now by the process above
         return pickle.load(f)

@@ -26,12 +26,11 @@ exits nonzero if a mutant passed.
                      bias (check_k3);
   k4_high_scale_low  K4 reading the high half's group scale from the low
                      half's row (check_k4);
-  k3_bwd_no_rowsum   K3's backward with rowsum(P o dP) dropped from dS =
-                     P o (dP - rowsum(P o dP)), in both passes
-                     (check_k3_bwd);
-  k3_bwd_unsummed    K3's backward storing each window's dS into d bias in
-                     place of adding it, so d bias is one window's and not
-                     the sum over the windows (check_k3_bwd).
+  k3_bwd_no_rowsum   the bf16 K3 backward with rowsum(P o dP) dropped from
+                     dS = P o (dP - rowsum(P o dP)) (check_k3_bwd);
+  k3_bwd_unsummed    the bf16 K3 backward's d bias sum taking one group's
+                     partial in place of the sum of the groups' partials
+                     (check_k3_bwd).
 """
 
 import os
@@ -85,13 +84,14 @@ MUTANTS = {
          "static_cast<long long>(r / group) * N + n0;")]),
     "k3_bwd_no_rowsum": ("check_k3_bwd", "swin_attention", [
         (f"{CSRC}/swin_attention_bwd.cu",
-         "const float ds = p * (dp - dsum);", "const float ds = p * dp;"),
+         "s[b + c][2 * r] * (dp[c][2 * r] - dsum[r]);",
+         "s[b + c][2 * r] * dp[c][2 * r];"),
         (f"{CSRC}/swin_attention_bwd.cu",
-         "const float ds = p * (dp - row_dot[i]);",
-         "const float ds = p * dp;")]),
+         "s[b + c][2 * r + 1] * (dp[c][2 * r + 1] - dsum[r]);",
+         "s[b + c][2 * r + 1] * dp[c][2 * r + 1];")]),
     "k3_bwd_unsummed": ("check_k3_bwd", "swin_attention", [
-        (f"{CSRC}/swin_attention_bwd.cu", "atomicAdd(dbh + at, ds);",
-         "dbh[at] = ds;")]),
+        (f"{CSRC}/swin_attention_bwd.cu", "sum += p[i * nn];",
+         "sum = p[i * nn];")]),
 }
 
 
