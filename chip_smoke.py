@@ -53,6 +53,11 @@ Phases, each of which must pass:
                     rounded operand may fall the other way, dP = dO v^T
                     and P) or 1e-5 |want| + 1e-5 M in f32; library: SDPA's
                     backward with a float mask that needs its gradient;
+                 K1 and K2 with a radius a point, (2, 4, 6, 8), on K1's
+                    and K2's inputs (every point has samples within and
+                    beyond its radius; the counts are logged), bf16 and
+                    f32, under K1's and K2's limits, timed beside the flat
+                    radius 8 on the same inputs;
                  K5 backward: causal at L=640 (32 x 64), non-causal at
                     S=21504 with 2 x 128 (the dense training shape) and 8 x
                     32, bf16; against the plain chunked backward on the
@@ -207,6 +212,19 @@ Phases, each of which must pass:
                every int8 base tensor bit for bit unchanged, every B
                moved; merge_lora's bf16 Phi gives logits within 5e-2 of
                the largest adapted logit.
+ 18. bench   - psalm_tpu_torch/bench.py's measure_mode for each of its
+               modes window8, window4, deformable and windowpp (radii 2, 4,
+               6, 8), one PSALMConfig() bf16 model with use_flash a mode
+               (random weights from seed 0, freed before the next) on
+               bench.py's geometry, 2 warm-up and 4 timed images a rate:
+               p50, blocking, pipelined and device img/s; 6 K1, 24 K3 and
+               24 K5 (causal) launches an image and no other kernel;
+               panoptic_seg and sem_seg of 480x640. At this init every
+               sampling offset lies within its point's radius (the offset
+               weight is zero and point p's bias p + 1 px), so the clamp
+               keeps the coordinates' bits: windowpp's maps must equal
+               deformable's. The bench's JSON line, without the CPU
+               baseline.
 
 Each path zeroes the launch counters just before its timed run and reads
 them just after. f32 comparisons run with TF32 off. On the line before the
@@ -912,6 +930,103 @@ def check_k2(torch, msdeform, records):
             records[-1].update(limit=K2_LIMITS[dtype == torch.bfloat16],
                                worst_of_limit={k: v[2]
                                                for k, v in held.items()})
+
+
+POINT_RADII = (2.0, 4.0, 6.0, 8.0)  # bench.py's windowpp default
+
+
+def points_inside_beyond(torch, msdeform, shapes, loc, radii):
+    """Per sampling point, its samples whose offset from the query's
+    reference pixel stays within the point's own radius on both axes, and
+    those beyond it on an axis (over every batch, query, head and level)."""
+    ref = torch.from_numpy(msdeform.reference_grid(shapes)).to(loc.device)
+    wh = torch.tensor([[w, h] for h, w in shapes], dtype=torch.float32,
+                      device=loc.device)
+    px = loc * wh[None, None, None, :, None, :] - 0.5
+    off = (px - ref[None, :, None, :, None, :]).abs()
+    r = torch.tensor(radii, device=loc.device)[:, None]
+    beyond = (off > r).any(-1).flatten(0, 3)  # [samples, P]
+    return ((~beyond).sum(0).tolist(), beyond.sum(0).tolist())
+
+
+def check_point_radii(torch, msdeform, records):
+    """K1 and K2 with one clamp radius a point, (2, 4, 6, 8), at the
+    encoder's shapes (check_k1's and check_k2's inputs, offsets to +-12 px:
+    every point has samples inside and beyond its own radius), held per
+    element to their limits against the plain versions; each timed beside
+    the flat radius 8 on the same inputs."""
+    for kernel in ("K1", "K2"):
+        shapes, loc, value32, attn32, g = deform_inputs(
+            torch, 1 if kernel == "K1" else 2,
+            off_whole_pixels=kernel == "K2")
+        starts = msdeform.level_starts(shapes)
+        inside, beyond = points_inside_beyond(torch, msdeform, shapes, loc,
+                                              POINT_RADII)
+        log(f"  {kernel} radii={POINT_RADII}: samples inside / beyond their "
+            f"point's radius {list(zip(inside, beyond))}")
+        if min(inside) == 0 or min(beyond) == 0:
+            fail(f"{kernel} radii: a point without samples inside and beyond "
+                 f"its radius ({inside}, {beyond})")
+        B, S, M, D = value32.shape
+        L, P = loc.shape[3], loc.shape[4]
+        grad32 = torch.randn(B, S, M * D, generator=g, device="cuda")
+        for dtype in (torch.bfloat16, torch.float32):
+            value, attn, grad = (t.to(dtype).contiguous()
+                                 for t in (value32, attn32, grad32))
+            elt = value.element_size()
+            name = (f"{kernel} ms_deform_attn{'' if kernel == 'K1' else '_bwd'}"
+                    f" {dtype_name(dtype)} radii={POINT_RADII}")
+            if kernel == "K1":
+                args = (value, shapes, starts, loc, attn)
+                call, plain = msdeform.ms_deform_attn, msdeform.ms_deform_attn_ref
+                got = call(*args, radius=POINT_RADII)
+                want = plain(*args, radius=POINT_RADII)
+                mag = msdeform.ms_deform_attn_magnitude(*args,
+                                                        radius=POINT_RADII)
+                torch.cuda.synchronize()
+                formula = ("2^-7" if dtype == torch.bfloat16 else "1e-5") \
+                    + " |want| + 1e-5 M, M = the twin on |value|, |attn|"
+                err, tol, worst = hold(name, got, want, msdeform.
+                                       ms_deform_attn_limit(want, mag, dtype),
+                                       formula)
+                nbytes = value.numel() * elt + loc.numel() * 4 \
+                    + attn.numel() * elt + B * S * M * D * elt
+                flops = B * S * M * L * P * 10 * D
+            else:
+                args = (value, shapes, starts, loc, attn, grad)
+                call = msdeform.ms_deform_attn_bwd
+                plain = msdeform.ms_deform_attn_bwd_ref
+                got = call(*args, radius=POINT_RADII)
+                want = plain(*args, radius=POINT_RADII)
+                mag = msdeform.ms_deform_attn_bwd_magnitude(
+                    *args, radius=POINT_RADII)
+                limits = msdeform.ms_deform_attn_bwd_limit(want, mag, dtype)
+                torch.cuda.synchronize()
+                worst = {}
+                for what, a, b, lim in zip(("d_value", "d_loc", "d_attn"),
+                                           got, want, limits):
+                    rounded = dtype == torch.bfloat16 and what != "d_loc"
+                    held = hold(f"{name} {what}", a, b, lim,
+                                K2_LIMITS[rounded])
+                    worst[what] = held[2]
+                    if what == "d_value":
+                        err, tol = held[:2]
+                formula = K2_LIMITS[dtype == torch.bfloat16]
+                nbytes = 2 * (value.numel() * elt + loc.numel() * 4
+                              + attn.numel() * elt) + grad.numel() * elt
+                flops = B * S * M * L * P * D * 30
+            del got, want, mag
+            record(records, kernel, name, err, tol,
+                   lambda: call(*args, radius=POINT_RADII),
+                   lambda: plain(*args, radius=POINT_RADII), None,
+                   bound(nbytes, flops, dtype_name(dtype)))
+            flat_ms = device_ms(lambda: call(*args, radius=8.0))
+            records[-1].update(limit=formula, worst_of_limit=worst,
+                               flat_r8_ms=flat_ms,
+                               points_inside_beyond=[inside, beyond])
+            log(f"  {name}: {records[-1]['ms']:.4f} ms beside flat radius 8 "
+                f"{flat_ms:.4f} ms on the same inputs "
+                f"({records[-1]['ms'] / flat_ms:.3f}x)")
 
 
 def check_k5_bwd(torch, flash_attention, records):
@@ -3277,6 +3392,85 @@ def lora_slice(torch, np, card):
     del merged
 
 
+# phase 18: psalm_tpu_torch/bench.py's four modes, first listed the headline
+BENCH_MODES = ("window8", "window4", "deformable", "windowpp")
+BENCH_ITERS, BENCH_WARMUP = 4, 2
+BENCH_PER_IMAGE = {"K1": 6, "K3": 24, "K5": 24}
+
+
+def offsets_within(model, radius):
+    """Whether every encoder layer's sampling offsets stay within each
+    point's radius for any input: a zero ``sampling_offsets`` weight, so
+    the offsets are its bias, and |bias| within the point's radius (the
+    deformable-DETR init gives point p a magnitude of p + 1 px)."""
+    from psalm_tpu_torch.ops import msdeform
+    for layer in model.pixel_decoder.transformer.encoder.layers:
+        att = layer.self_attn
+        radii = msdeform.point_radii(radius, att.n_points)
+        bias = att.sampling_offsets.bias.float().reshape(
+            att.n_heads, att.n_levels, att.n_points, 2)
+        if att.sampling_offsets.weight.count_nonzero() or (
+                bias.abs() > bias.new_tensor(radii)[:, None]).any():
+            return False
+    return True
+
+
+def bench_slice(torch, np, card):
+    """Phase 18: ``psalm_tpu_torch.bench.measure_mode`` for each of
+    BENCH_MODES at the full published width (its own model per mode,
+    freed before the next); returns each mode's launches."""
+    from psalm_tpu_torch import bench
+    paths, results, maps = {}, [], {}
+    for spec in BENCH_MODES:
+        mode, radius, key = bench.mode_spec(spec)
+        t0 = time.perf_counter()
+        runner, batch = bench.build(mode, radius)
+        inside = (offsets_within(runner.model, radius)
+                  if radius is not None else None)
+        zero_counts()
+        r = bench.measure_mode(mode, radius, iters=BENCH_ITERS,
+                               warmup=BENCH_WARMUP, runner=runner,
+                               batch=batch)
+        counts = launch_counts()
+        paths[f"bench {key}"] = counts
+        bench.report(key, r)
+        log(f"  {key}: built and measured in {time.perf_counter() - t0:.1f} s"
+            f" on {card}; launches in the run {counts}; offsets within each "
+            f"point's radius: {inside}")
+        if r["launches"] != BENCH_PER_IMAGE:
+            fail(f"bench {key}: launches an image {r['launches']} != "
+                 f"{BENCH_PER_IMAGE}")
+        others = {k: v for k, v in counts.items()
+                  if k not in ("K1", "K3", "K5 causal")}
+        if any(others.values()) or min(counts["K1"], counts["K3"],
+                                       counts["K5 causal"]) == 0:
+            fail(f"bench {key}: launches {counts}")
+        res = runner.infer(batch)
+        pan, sem = res["panoptic_seg"][0], res["sem_seg"][0]
+        if pan.shape != ORIGINAL_HW or sem.shape != ORIGINAL_HW:
+            fail(f"bench {key}: panoptic_seg {pan.shape} / sem_seg "
+                 f"{sem.shape} != {ORIGINAL_HW}")
+        maps[key] = (pan, sem, inside)
+        results.append((key, r))
+        del runner, res
+        gc.collect()
+        torch.cuda.empty_cache()
+    # at this init every offset is within its point's radius, so the clamp
+    # is the identity (the coordinates keep their bits) and the clamped
+    # modes give the exact sampler's maps
+    exact = maps["deformable_parity"]
+    for key, (pan, sem, inside) in maps.items():
+        same = (np.array_equal(pan, exact[0]), np.array_equal(sem, exact[1]))
+        log(f"  {key}: panoptic_seg and sem_seg equal to deformable's: {same}")
+        if key.startswith("window_pp") and not (inside and all(same)):
+            fail(f"bench {key}: offsets within each radius {inside}, maps "
+                 f"equal to deformable's {same}")
+    line = bench.summary(results, None, torch.cuda.get_device_name(0))
+    log(f"bench JSON (no CPU baseline here: vs_baseline null): "
+        f"{json.dumps(line)}")
+    return paths
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "psalm_tpu_torch")):
         fail("psalm_tpu_torch is not beside chip_smoke.py: run it from the "
@@ -3319,6 +3513,7 @@ def main():
     check_k2(torch, msdeform, records)
     check_k5_bwd(torch, flash_attention, records)
     check_k3_bwd(torch, swin_attention, records)
+    check_point_radii(torch, msdeform, records)
 
     log("== small slice (tiny config, f32: card kernels vs CPU plain)")
     check_small_slice(torch, np)
@@ -3399,6 +3594,11 @@ def main():
     log("== QLoRA (Phi-1.5, rank 64 on the int8 base, "
         "psalm_finetune_optimizer, train_step)")
     lora_slice(torch, np, card)
+    torch.cuda.empty_cache()
+
+    log("== bench (psalm_tpu_torch.bench.measure_mode: window8, window4, "
+        "deformable, windowpp; PSALMConfig(), bf16, use_flash)")
+    paths.update(bench_slice(torch, np, card))
 
     bad = [m for m in sys.modules if m in ("jax", "flax", "optax")
            or m == "psalm_tpu" or m.startswith("psalm_tpu.")]
@@ -3418,7 +3618,8 @@ def main():
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
             **{k: r[k] for k in ("int4pack_ms", "kernels_per_call", "limit",
-                                 "worst_of_limit") if k in r},
+                                 "worst_of_limit", "flat_r8_ms",
+                                 "points_inside_beyond") if k in r},
             **({"path_ms_per_launch": {p: v[k] for p, v in path_ms.items()
                                        if k in v}}
                if k in ("K1", "K2") else {})})

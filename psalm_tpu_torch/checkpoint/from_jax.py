@@ -10,6 +10,10 @@ torch state dict, whose keys are the port's parameter names:
   split q/k/v Dense                  -> packed in_proj_weight / in_proj_bias
   batch_stats mean / var             -> running_mean / running_var
 
+The projector carries whichever ``projector_type`` built it: swin_conv's
+BasicBlock and ``fc``, linear's ``fc`` (``model.mm_projector``, no
+``batch_stats``) or mlpNx_gelu's ``fc_i`` (``model.mm_projector.{2 i}``).
+
 The pixel decoder's encoder layers carry whichever attention they hold: the
 deformable one (``sampling_offsets``, ``attention_weights``, ``value_proj``,
 ``output_proj``) or, in ``attention_mode="dense"``, ``DenseSelfAttention``
@@ -150,6 +154,17 @@ def _swin(sd: StateDict, p: Dict[str, Any], depths) -> None:
 
 
 def _projector(sd: StateDict, p: Dict[str, Any], s: Dict[str, Any]) -> None:
+    """swin_conv (conv1, ...), linear (``fc`` -> ``model.mm_projector``) or
+    mlpNx_gelu (``fc_i`` -> ``model.mm_projector.{2 i}``, the GELUs between
+    the linears of its ``nn.Sequential`` holding none)."""
+    if "conv1" not in p:
+        if "fc" in p:
+            _dense(sd, "model.mm_projector", p["fc"])
+        i = 0
+        while f"fc_{i}" in p:
+            _dense(sd, f"model.mm_projector.{2 * i}", p[f"fc_{i}"])
+            i += 1
+        return
     pre = "model.mm_projector.layer1.0"
     _conv(sd, f"{pre}.conv1", p["conv1"])
     _conv(sd, f"{pre}.conv2", p["conv2"])
@@ -207,12 +222,12 @@ def _predictor(sd: StateDict, p: Dict[str, Any], dec_layers: int) -> None:
 def jax_to_torch_state_dict(variables: Dict[str, Any], cfg) -> StateDict:
     """Flax variables of ``psalm_tpu.models.psalm.PSALM`` -> the released
     checkpoint's torch state dict (numpy arrays)."""
-    p, s = variables["params"], variables["batch_stats"]
+    p, s = variables["params"], variables.get("batch_stats", {})
     sd: StateDict = {}
     _phi(sd, p["phi"]["model"], cfg.phi.num_layers)
     _dense(sd, "lm_head", p["phi"]["lm_head"])
     _swin(sd, p["vision_tower"], cfg.swin.depths)
-    _projector(sd, p["mm_projector"], s["mm_projector"])
+    _projector(sd, p["mm_projector"], s.get("mm_projector", {}))
     _pixel_decoder(sd, p["pixel_decoder"],
                    cfg.pixel_decoder.transformer_enc_layers,
                    cfg.pixel_decoder.num_feature_levels)

@@ -8,11 +8,11 @@
 //
 // For each (batch b, query q, head m) and each of the L*P samples (level l,
 // point p): map loc to level-l pixel coordinates (x = loc_x * W_l - 0.5),
-// optionally clamp the offset from the query's reference point to +-radius
-// target-level pixels (c = ref + clip(coord - ref, -r, r), exactly as
-// _axis_taps in psalm_tpu/ops/msdeform_window.py), take the bilinear 2x2 tap
-// with zero weight for off-image corners, scale by the attention weight and
-// sum. Output [B, Q, M*D] in the value dtype; accumulation in f32, rounded
+// optionally clamp the offset from the query's reference point to +-r_p
+// target-level pixels, r_p the radius of point p (c = ref + clip(coord -
+// ref, -r_p, r_p), exactly as _axis_taps in psalm_tpu/ops/
+// msdeform_window.py), take the bilinear 2x2 tap with zero weight for
+// off-image corners, scale by the attention weight and sum. Output [B, Q, M*D] in the value dtype; accumulation in f32, rounded
 // once.
 //
 // What bounds it on the H100: the gathers' latency and L2 traffic. At the
@@ -49,7 +49,8 @@ namespace psalm {
 template <typename T, int kV, int kP, bool kClamp>
 __device__ __forceinline__ void sample_level(
     const T* vl, int MD, int H, int W, const float* loc_l, const T* attn_l,
-    int P, float rx, float ry, float radius, bool active, float (&acc)[kV]) {
+    int P, float rx, float ry, const Radii& radii, bool active,
+    float (&acc)[kV]) {
   using V = Vec<T, kV>;
   if constexpr (kP > 0) {
     float lc[2 * kP], a[kP];
@@ -64,7 +65,7 @@ __device__ __forceinline__ void sample_level(
 #pragma unroll
     for (int p = 0; p < kP; ++p) {
       c[p] = corners_of(sample_taps<kClamp>(lc[2 * p], lc[2 * p + 1], H, W,
-                                            rx, ry, radius), W, a[p]);
+                                            rx, ry, radii, p), W, a[p]);
     }
     typename V::Raw raw[kP][4];
 #pragma unroll
@@ -90,7 +91,7 @@ __device__ __forceinline__ void sample_level(
     for (int p = 0; p < P; ++p) {
       const Corners c = corners_of(
           sample_taps<kClamp>(loc_l[2 * p], loc_l[2 * p + 1], H, W, rx, ry,
-                              radius), W, to_f32(attn_l[p]));
+                              radii, p), W, to_f32(attn_l[p]));
       typename V::Raw raw[4];
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
@@ -113,7 +114,7 @@ __global__ void __launch_bounds__(256) msdeform_fwd_kernel(
     const T* __restrict__ value, const float* __restrict__ loc,
     const T* __restrict__ attn, const float* __restrict__ ref,
     T* __restrict__ out, long long threads, int S, int Q, int M, int D, int L,
-    int P, int tph_shift, Levels lv, float radius) {
+    int P, int tph_shift, Levels lv, Radii radii) {
   const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const long long head = t >> tph_shift;  // (b * Q + q) * M + m
   const int d0 = static_cast<int>(t & ((1 << tph_shift) - 1)) * kV;
@@ -139,7 +140,7 @@ __global__ void __launch_bounds__(256) msdeform_fwd_kernel(
     }
     sample_level<T, kV, kP, kClamp>(value_b + lv.start[l] * MD, MD, lv.h[l],
                                     lv.w[l], loc_h + l * nP * 2,
-                                    attn_h + l * nP, nP, rx, ry, radius,
+                                    attn_h + l * nP, nP, rx, ry, radii,
                                     active, acc);
   };
   if constexpr (kL > 0) {
@@ -155,7 +156,7 @@ __global__ void __launch_bounds__(256) msdeform_fwd_kernel(
 template <typename T>
 cudaError_t launch(const void* value, const void* loc, const void* attn,
                    const void* ref, void* out, int B, int S, int Q, int M,
-                   int D, int L, int P, const Levels& lv, float radius,
+                   int D, int L, int P, const Levels& lv, const Radii& radii,
                    int clamp, cudaStream_t stream) {
   Layout lay;
   const auto addr = [](const void* p) {
@@ -177,7 +178,7 @@ cudaError_t launch(const void* value, const void* loc, const void* attn,
             static_cast<const T*>(value), static_cast<const float*>(loc),
             static_cast<const T*>(attn), static_cast<const float*>(ref),
             static_cast<T*>(out), threads, S, Q, M, D, L, P, lay.tph_shift,
-            lv, radius);
+            lv, radii);
   });
   return cudaGetLastError();
 }
@@ -185,28 +186,32 @@ cudaError_t launch(const void* value, const void* loc, const void* attn,
 }  // namespace psalm
 
 // value [B,S,M,D] and attn [B,Q,M,L,P] in `dtype`; loc [B,Q,M,L,P,2] f32;
-// ref [Q,L,2] f32 (read only when clamp != 0); out [B,Q,M*D] in `dtype`.
-// shapes: host array of L (H, W) pairs. Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for shapes the kernel does not take (a head wider
-// than 32 threads, a batch of more than INT_MAX value elements).
+// ref [Q,L,2] f32 (read only with radii); out [B,Q,M*D] in `dtype`.
+// shapes: host array of L (H, W) pairs; radii: host array of the P points'
+// clamp radii (f32), or null for the exact, unclamped sampler. Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for shapes the kernel does
+// not take (a head wider than 32 threads, a batch of more than INT_MAX
+// value elements, more than kMaxPoints clamped points).
 extern "C" int psalm_msdeform_fwd(const void* value, const void* loc,
                                   const void* attn, const void* ref, void* out,
                                   int dtype, int B, int S, int Q, int M, int D,
-                                  int L, int P, const void* shapes, float radius,
-                                  int clamp, void* stream) {
+                                  int L, int P, const void* shapes,
+                                  const void* radii, void* stream) {
   using namespace psalm;
   Levels lv{};
-  if (!make_levels(shapes, L, S, &lv)) {
+  Radii rd{};
+  if (!make_levels(shapes, L, S, &lv) || !make_radii(radii, P, &rd)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int clamp = radii != nullptr;
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == kFloat32) {
     err = launch<float>(value, loc, attn, ref, out, B, S, Q, M, D, L, P, lv,
-                        radius, clamp, st);
+                        rd, clamp, st);
   } else if (dtype == kBFloat16) {
     err = launch<__nv_bfloat16>(value, loc, attn, ref, out, B, S, Q, M, D, L,
-                                P, lv, radius, clamp, st);
+                                P, lv, rd, clamp, st);
   } else {
     err = cudaErrorInvalidValue;
   }

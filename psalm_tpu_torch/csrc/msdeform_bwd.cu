@@ -13,10 +13,11 @@
 //   d loc_x = W * a * sum_d g_d * (gy (v01 - v00) + fy (v11 - v10))
 //   d loc_y = H * a * sum_d g_d * (gx (v10 - v00) + fx (v11 - v01))
 // where off-image corners read as zero, so they give nothing to any
-// gradient; with a radius, d loc is zero on an axis whose offset the clamp
-// clipped (the dcl gate). d value is summed in an f32 accumulator [B, S,
-// M, D] that the launcher zeroes and, for a bf16 value, rounds to bf16 once
-// (msdeform_bwd_finish_kernel); d loc is f32 and d attn in the value's type.
+// gradient; with clamp radii (one a point, K1's), d loc is zero on an axis
+// whose offset the clamp clipped (the dcl gate). d value is summed in an
+// f32 accumulator [B, S, M, D] that the launcher zeroes and, for a bf16
+// value, rounds to bf16 once (msdeform_bwd_finish_kernel); d loc is f32 and
+// d attn in the value's type.
 //
 // What bounds it on the H100: the scatter. At the 1024^2 encoder shapes (Q =
 // S = 21504, M = 8, D = 32, L = 3, P = 4) a call adds Q*M*L*P*4*D = 264 M f32
@@ -132,7 +133,7 @@ __device__ __forceinline__ void level_grads(
     const T* vl, float* gvl, int stride, int MD, int H, int W,
     const float* loc_l,
     const T* attn_l, float* gloc_l, T* gattn_l, int P, float rx, float ry,
-    float radius, bool in_range, bool active, int lane_in_head,
+    const Radii& radii, bool in_range, bool active, int lane_in_head,
     int tph_shift, const float (&g)[kV]) {
   using V = Vec<T, kV>;
   if constexpr (kP > 0) {
@@ -148,7 +149,8 @@ __device__ __forceinline__ void level_grads(
     Corners c[kP];
 #pragma unroll
     for (int p = 0; p < kP; ++p) {
-      t[p] = sample_taps<kClamp>(lc[2 * p], lc[2 * p + 1], H, W, rx, ry, radius);
+      t[p] = sample_taps<kClamp>(lc[2 * p], lc[2 * p + 1], H, W, rx, ry, radii,
+                                 p);
       c[p] = corners_of(t[p], W, 1.f);
     }
     typename V::Raw raw[kP][4];
@@ -185,7 +187,7 @@ __device__ __forceinline__ void level_grads(
       const float lx = in_range ? loc_l[2 * p] : 0.f;
       const float ly = in_range ? loc_l[2 * p + 1] : 0.f;
       const float a = in_range ? to_f32(attn_l[p]) : 0.f;
-      const Taps t = sample_taps<kClamp>(lx, ly, H, W, rx, ry, radius);
+      const Taps t = sample_taps<kClamp>(lx, ly, H, W, rx, ry, radii, p);
       const Corners c = corners_of(t, W, 1.f);
       float f[4][kV];
 #pragma unroll
@@ -215,7 +217,7 @@ __global__ void __launch_bounds__(256) msdeform_bwd_kernel(
     const T* __restrict__ grad_out, float* __restrict__ grad_value_acc,
     float* __restrict__ grad_loc, T* __restrict__ grad_attn,
     long long threads, int S, int Q, int M, int D, int L, int P,
-    int tph_shift, Levels lv, float radius) {
+    int tph_shift, Levels lv, Radii radii) {
   const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const long long head = t >> tph_shift;  // (b * Q + q) * M + m
   const int lane_in_head = static_cast<int>(t & ((1 << tph_shift) - 1));
@@ -254,7 +256,7 @@ __global__ void __launch_bounds__(256) msdeform_bwd_kernel(
         lv.h[l], lv.w[l],
         loc + (row + l * nP) * 2, attn + row + l * nP,
         grad_loc + (row + l * nP) * 2, grad_attn + row + l * nP, nP, rx, ry,
-        radius, in_range, active, lane_in_head, tph_shift, g);
+        radii, in_range, active, lane_in_head, tph_shift, g);
   };
   if constexpr (kL > 0) {
 #pragma unroll
@@ -295,7 +297,7 @@ cudaError_t launch_bwd(const void* value, const void* loc, const void* attn,
                        const void* ref, const void* grad_out, void* grad_value,
                        void* grad_value_acc, void* grad_loc, void* grad_attn,
                        int B, int S, int Q, int M, int D, int L, int P,
-                       const Levels& lv, float radius, int clamp,
+                       const Levels& lv, const Radii& radii, int clamp,
                        cudaStream_t stream) {
   Layout lay;
   const auto addr = [](const void* p) {
@@ -330,7 +332,7 @@ cudaError_t launch_bwd(const void* value, const void* loc, const void* attn,
               static_cast<const T*>(grad_out),
               static_cast<float*>(grad_value_acc),
               static_cast<float*>(grad_loc), static_cast<T*>(grad_attn),
-              threads, S, Q, M, D, L, P, lay.tph_shift, lv, radius);
+              threads, S, Q, M, D, L, P, lay.tph_shift, lv, radii);
     });
   }
   if constexpr (!std::is_same_v<T, float>) {
@@ -351,36 +353,39 @@ cudaError_t launch_bwd(const void* value, const void* loc, const void* attn,
 }  // namespace psalm
 
 // value [B,S,M,D], attn [B,Q,M,L,P] and grad_out [B,Q,M*D] in `dtype`; loc
-// [B,Q,M,L,P,2] f32; ref [Q,L,2] f32 (read only when clamp != 0).
+// [B,Q,M,L,P,2] f32; ref [Q,L,2] f32 (read only with radii).
 // grad_value [B,S,M,D] in `dtype`; grad_value_acc [B,S,M,D] f32 scratch,
 // zeroed here and summed into with reductions (for f32 it may be
 // grad_value itself); grad_loc [B,Q,M,L,P,2] f32 (8-byte aligned) and
 // grad_attn [B,Q,M,L,P] in `dtype`, each element written once. shapes: host
-// array of L (H, W) pairs. Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for shapes the kernel does not take (as K1).
+// array of L (H, W) pairs; radii: host array of the P clamp radii, or null
+// (as K1). Returns cudaGetLastError(), or cudaErrorInvalidValue for shapes
+// the kernel does not take (as K1).
 extern "C" int psalm_msdeform_bwd(const void* value, const void* loc,
                                   const void* attn, const void* ref,
                                   const void* grad_out, void* grad_value,
                                   void* grad_value_acc, void* grad_loc,
                                   void* grad_attn, int dtype, int B, int S,
                                   int Q, int M, int D, int L, int P,
-                                  const void* shapes, float radius, int clamp,
+                                  const void* shapes, const void* radii,
                                   void* stream) {
   using namespace psalm;
   Levels lv{};
-  if (!make_levels(shapes, L, S, &lv)) {
+  Radii rd{};
+  if (!make_levels(shapes, L, S, &lv) || !make_radii(radii, P, &rd)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int clamp = radii != nullptr;
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == kFloat32) {
     err = launch_bwd<float>(value, loc, attn, ref, grad_out, grad_value,
                             grad_value_acc, grad_loc, grad_attn, B, S, Q, M, D,
-                            L, P, lv, radius, clamp, st);
+                            L, P, lv, rd, clamp, st);
   } else if (dtype == kBFloat16) {
     err = launch_bwd<__nv_bfloat16>(value, loc, attn, ref, grad_out,
                                     grad_value, grad_value_acc, grad_loc,
-                                    grad_attn, B, S, Q, M, D, L, P, lv, radius,
+                                    grad_attn, B, S, Q, M, D, L, P, lv, rd,
                                     clamp, st);
   } else {
     err = cudaErrorInvalidValue;

@@ -34,6 +34,27 @@ inline bool make_levels(const void* shapes, int L, int S, Levels* lv) {
   return start == S;
 }
 
+// The clamp radius of each sampling point, passed by value among the
+// kernel's parameters (no device buffer, no copy a call): point p's offset
+// from its reference point is clipped to +-r[p] on each axis, as
+// psalm_tpu/ops/msdeform_window.py takes a length-P radius (:351-361). A
+// flat radius is the same vector filled with one value.
+constexpr int kMaxPoints = 32;
+
+struct Radii {
+  float r[kMaxPoints];
+};
+
+// The P radii from a host array; an unclamped launch passes none (nullptr)
+// and its kernels never read them. False when P is out of range.
+inline bool make_radii(const void* radii, int P, Radii* rd) {
+  if (radii == nullptr) return true;
+  if (P < 1 || P > kMaxPoints) return false;
+  const float* r = static_cast<const float*>(radii);
+  for (int p = 0; p < P; ++p) rd->r[p] = r[p];
+  return true;
+}
+
 // One sample's 2x2 tap in level pixels.
 struct Taps {
   float fx, fy;              // fractions past the top-left corner
@@ -43,7 +64,8 @@ struct Taps {
 };
 
 // x = loc_x * W - 0.5 (and y likewise); with kClamp the offset from the
-// reference point (rx, ry) is clipped to +-radius first, exactly as
+// reference point (rx, ry) is clipped to +-radius, point p's radius
+// radii.r[p], first, exactly as
 // psalm_tpu/ops/msdeform_window.py::_axis_taps does: c = ref + clip(coord -
 // ref, -r, r), floor, corner validity from global coordinates, and
 // pass = |coord - ref| <= r (its gradient gate dcl). The _rn intrinsics keep
@@ -53,12 +75,13 @@ struct Taps {
 template <bool kClamp>
 __device__ __forceinline__ Taps sample_taps(float loc_x, float loc_y, int H,
                                             int W, float rx, float ry,
-                                            float radius) {
+                                            const Radii& radii, int p) {
   float x = __fsub_rn(__fmul_rn(loc_x, (float)W), 0.5f);
   float y = __fsub_rn(__fmul_rn(loc_y, (float)H), 0.5f);
   Taps t;
   t.pass_x = t.pass_y = true;
   if (kClamp) {
+    const float radius = radii.r[p];
     const float dx = __fsub_rn(x, rx), dy = __fsub_rn(y, ry);
     t.pass_x = dx >= -radius && dx <= radius;
     t.pass_y = dy >= -radius && dy <= radius;

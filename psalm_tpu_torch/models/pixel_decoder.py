@@ -8,11 +8,14 @@ mask features. LayerNorm and GroupNorm run in f32.
 
 The sampler is kernel K1 (``psalm_tpu_torch/ops/msdeform.py``):
 ``attention_mode="deformable"`` (the default) runs it exact;
-``"window"`` and ``"window_pallas3"`` run it with ``radius=window_radius``,
-the JAX window modes' clamp. ``"dense"`` replaces the sampler with
-``DenseSelfAttention``, full non-causal attention over all S encoder tokens
-through kernel K5 (``psalm_tpu_torch/ops/flash_attention.py``). Per-point
-radii are not ported.
+``"window"`` and ``"window_pallas3"`` run it with the JAX window modes'
+clamp: ``window_point_radii``, one radius a sampling point, where the
+config gives them, else ``window_radius`` for every point; and, as JAX's
+``"window_pallas3"`` does, that mode clamps at max(radii)
+(``psalm_tpu/models/pixel_decoder.py:114-116, 136-141``). ``"dense"``
+replaces the sampler with ``DenseSelfAttention``, full non-causal attention
+over all S encoder tokens through kernel K5
+(``psalm_tpu_torch/ops/flash_attention.py``).
 
 With ``remat`` (``nn.remat`` per encoder layer in JAX), a forward that
 records gradients keeps only each encoder layer's input and recomputes the
@@ -187,23 +190,24 @@ def _conv_norm(in_ch, out_ch, kernel, padding, dtype, device) -> nn.Sequential:
 
 class MSDeformAttnPixelDecoder(nn.Module):
     """features (res2, res3, res4, res5) NHWC -> (mask_features,
-    transformer_encoder_feature, multi_scale_features)."""
+    transformer_encoder_feature, multi_scale_features). ``radius``: None
+    (exact), a float, or a tuple of one radius a point."""
 
     def __init__(self, cfg: PixelDecoderConfig, dtype=torch.float32,
                  device=None, remat: bool = False):
         super().__init__()
         self.remat = remat
         mode = cfg.attention_mode
-        if cfg.window_point_radii:
-            raise NotImplementedError(
-                f"pixel decoder window_point_radii={cfg.window_point_radii} "
-                "is not ported (ROADMAP.md, Queue 1 item 7: K1 and K2 with "
-                "one radius per point)")
         if mode not in ("deformable", "dense") + _CLAMPED_MODES:
             raise ValueError(f"unknown attention_mode {mode!r}")
         self.cfg = cfg
         self.dtype = dtype
-        radius = float(cfg.window_radius) if mode in _CLAMPED_MODES else None
+        radius = None
+        if mode in _CLAMPED_MODES:
+            radius = (tuple(float(r) for r in cfg.window_point_radii)
+                      or float(cfg.window_radius))
+            if mode == "window_pallas3" and isinstance(radius, tuple):
+                radius = max(radius)
         self.radius = radius
         cd = cfg.conv_dim
         # top-down order res5, res4, res3

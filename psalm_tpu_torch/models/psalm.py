@@ -52,7 +52,7 @@ from psalm_tpu_torch.models.phi import PhiModel
 from psalm_tpu_torch.models.pixel_decoder import (MSDeformAttnLayer,
                                                   MSDeformAttnPixelDecoder,
                                                   offset_bias_init)
-from psalm_tpu_torch.models.projector import ResNetSwinProjector
+from psalm_tpu_torch.models.projector import build_projector
 from psalm_tpu_torch.models.swin import SwinTransformer, WindowAttention
 from psalm_tpu_torch.ops.sampling import point_sample
 
@@ -86,8 +86,8 @@ class PSALMBackbone(PhiModel):
         super().__init__(cfg.phi, dtype=dtype, device=device,
                          use_flash=use_flash, remat=remat)
         self.vision_tower = SwinTransformer(cfg.swin, dtype=dtype, device=device)
-        self.mm_projector = ResNetSwinProjector(cfg.projector, dtype=dtype,
-                                                device=device)
+        self.mm_projector = build_projector(cfg.projector, dtype=dtype,
+                                            device=device)
 
 
 class PSALM(nn.Module):

@@ -45,9 +45,9 @@ _F = ctypes.c_float
 # argtypes of every launcher in csrc, in the order of its C signature
 SIGNATURES = {
     # value, loc, attn, ref, out, dtype, B, S, Q, M, D, L, P, shapes,
-    # radius, clamp, stream
+    # radii (P floats on the host, or None: unclamped), stream
     "psalm_msdeform_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                           _P, _F, _I, _P],
+                           _P, _P, _P],
     # qkv, bias, mask, out, dtype, Bn, N, C, nheads, nW, scale, stream
     "psalm_window_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                                    _P],
@@ -64,9 +64,9 @@ SIGNATURES = {
     "psalm_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                                   _P],
     # value, loc, attn, ref, grad_out, grad_value, grad_value_acc, grad_loc,
-    # grad_attn, dtype, B, S, Q, M, D, L, P, shapes, radius, clamp, stream
+    # grad_attn, dtype, B, S, Q, M, D, L, P, shapes, radii, stream
     "psalm_msdeform_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                           _I, _I, _I, _I, _P, _F, _I, _P],
+                           _I, _I, _I, _I, _P, _P, _P],
     # q, k, v, out, dout, lse, delta, dq, dk, dv, dtype, BH, L, hd, causal,
     # scale, stream
     "psalm_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,

@@ -18,9 +18,14 @@ Pixel coordinates are x = loc_x * W - 0.5 (``grid_sample`` with zeros
 padding and ``align_corners=False``); off-image corners contribute zero.
 
 With ``radius`` set, each sample's offset from its query's reference point is
-clamped to +-radius target-level pixels first, with the semantics of
+clamped to +-r target-level pixels first, with the semantics of
 ``psalm_tpu/ops/msdeform_window.py::_axis_taps``: c = ref + clip(coord - ref,
--r, r), floor, and corner validity from global coordinates. ``ref`` is
+-r, r), floor, and corner validity from global coordinates. ``radius`` is
+one float for every point or, as ``ms_deform_attn_window`` takes it
+(``msdeform_window.py:351-361``), a length-P sequence: point p is clamped
+at its own radius (``point_radii``). The kernels take the P radii by value
+among their launch parameters, so a call copies nothing to the device for
+them; a flat radius is the same vector filled with one value. ``ref`` is
 [Q, L, 2] f32 (x, y) target-level pixel coordinates; by default it is the
 encoder's (Q == S, each query at its own pixel centre), built in float64 and
 cast once, as ``_ref_grid`` builds it.
@@ -49,7 +54,8 @@ from psalm_tpu_torch.ops import _build
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 
-MAX_LEVELS = 8  # csrc/msdeform.cu::kMaxLevels
+MAX_LEVELS = 8  # csrc/msdeform_common.cuh::kMaxLevels
+MAX_POINTS = 32  # csrc/msdeform_common.cuh::kMaxPoints (clamped points)
 
 Shapes = Tuple[Tuple[int, int], ...]
 
@@ -88,6 +94,28 @@ def reference_grid(spatial_shapes) -> np.ndarray:
     return np.ascontiguousarray(np.concatenate(parts, 0))
 
 
+def point_radii(radius, P: int) -> Optional[Tuple[float, ...]]:
+    """The clamp radius of each of the P points, or None (no clamp): a
+    number gives every point the same radius, a sequence one each
+    (``psalm_tpu/ops/msdeform_window.py:351-361``)."""
+    if radius is None:
+        return None
+    if np.ndim(radius) == 0:
+        return (float(radius),) * P
+    radii = tuple(float(r) for r in radius)
+    if len(radii) != P:
+        raise ValueError(f"per-point radii: got {len(radii)}, P={P}")
+    return radii
+
+
+def _radius_tensor(radius, P: int, device) -> Optional[torch.Tensor]:
+    """``point_radii`` as a [P] f32 tensor for the plain versions."""
+    radii = point_radii(radius, P)
+    if radii is None:
+        return None
+    return torch.tensor(radii, dtype=torch.float32, device=device)
+
+
 def _check_level_start(shapes: Shapes, level_start) -> None:
     if level_start is None:
         return
@@ -110,9 +138,9 @@ def _ref_tensor(ref, shapes: Shapes, Q: int, device) -> torch.Tensor:
 
 def _level_coords(loc_bm, lid: int, H: int, W: int, radius, ref):
     """Level ``lid``'s sample coordinates in level pixels, x = loc_x W - 0.5
-    (and y), clamped to +-radius of ``ref`` when a radius is given, and
-    whether the clamp passed each axis (its gradient gate): (x, y, pass_x,
-    pass_y), [BM, Q, P] each."""
+    (and y), clamped to +-radius[p] of ``ref`` when ``radius``, the [P]
+    radii tensor, is given, and whether the clamp passed each axis (its
+    gradient gate): (x, y, pass_x, pass_y), [BM, Q, P] each."""
     x = loc_bm[:, :, lid, :, 0] * W - 0.5
     y = loc_bm[:, :, lid, :, 1] * H - 0.5
     if radius is None:
@@ -155,7 +183,7 @@ def _corner_weights(fx, fy):
 
 def ms_deform_attn_ref(value: torch.Tensor, spatial_shapes,
                        level_start, loc: torch.Tensor, attn: torch.Tensor,
-                       radius: Optional[float] = None,
+                       radius=None,
                        ref: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch sampler: four corner gathers per sample, weights and
     sums in f32 (``psalm_tpu/ops/msdeform.py:38-103``; with ``radius``, the
@@ -169,6 +197,7 @@ def ms_deform_attn_ref(value: torch.Tensor, spatial_shapes,
     if L != len(shapes) or S != sum(h * w for h, w in shapes):
         raise ValueError(f"value/loc do not match spatial_shapes {shapes}")
     loc = loc.float()
+    radius = _radius_tensor(radius, P, value.device)
     if radius is not None:
         ref = _ref_tensor(ref, shapes, Q, value.device)
     # [B, S, M, D] -> [B*M, S, D]; loc -> [B*M, Q, L, P, 2]; attn -> [B*M, Q, L, P]
@@ -194,8 +223,7 @@ def ms_deform_attn_ref(value: torch.Tensor, spatial_shapes,
 
 def ms_deform_attn_magnitude(value: torch.Tensor, spatial_shapes,
                              level_start, loc: torch.Tensor,
-                             attn: torch.Tensor,
-                             radius: Optional[float] = None,
+                             attn: torch.Tensor, radius=None,
                              ref: Optional[torch.Tensor] = None
                              ) -> torch.Tensor:
     """The twin on |value| and |attn| in f32 [B, Q, M * D]: the bilinear
@@ -217,8 +245,7 @@ def ms_deform_attn_limit(want: torch.Tensor, magnitude: torch.Tensor,
 
 
 def ms_deform_attn_bwd_magnitude(value, spatial_shapes, level_start, loc,
-                                 attn, grad_out,
-                                 radius: Optional[float] = None,
+                                 attn, grad_out, radius=None,
                                  ref: Optional[torch.Tensor] = None):
     """Per element of (d value, d loc, d attn), the sum of the absolute
     values of its terms in f32, and each gradient's most terms an element
@@ -237,6 +264,7 @@ def ms_deform_attn_bwd_magnitude(value, spatial_shapes, level_start, loc,
     m_value = ms_deform_attn_bwd_ref(value.float(), shapes, level_start, loc,
                                      attn.float().abs(), g_abs, radius=radius,
                                      ref=ref)[0]
+    radius = _radius_tensor(radius, P, value.device)
     if radius is not None:
         ref = _ref_tensor(ref, shapes, Q, value.device)
     value_bm = value.float().abs().permute(0, 2, 1, 3).reshape(B * M, S, D)
@@ -336,7 +364,7 @@ def _check_inputs(value, loc, attn, ref, shapes: Shapes) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def _launch_fwd(lib, value, shapes: Shapes, loc, attn, radius, ref):
+def _launch_fwd(lib, value, shapes: Shapes, loc, attn, radii, ref):
     global LAUNCHES
     B, S, M, D = value.shape
     Q, L, P = loc.shape[1], loc.shape[3], loc.shape[4]
@@ -344,10 +372,10 @@ def _launch_fwd(lib, value, shapes: Shapes, loc, attn, radius, ref):
     with torch.cuda.device(value.device):
         rc = lib.psalm_msdeform_fwd(
             value.data_ptr(), loc.data_ptr(), attn.data_ptr(),
-            ref.data_ptr() if radius is not None else None, out.data_ptr(),
+            ref.data_ptr() if radii is not None else None, out.data_ptr(),
             _build.DTYPE_CODES[value.dtype], B, S, Q, M, D, L, P,
-            _shapes_c(shapes), float(radius) if radius is not None else 0.0,
-            int(radius is not None), _build.stream_ptr(value.device))
+            _shapes_c(shapes), _radii_c(radii),
+            _build.stream_ptr(value.device))
     _build.check(lib, rc, "psalm_msdeform_fwd")
     LAUNCHES += 1
     return out
@@ -358,7 +386,15 @@ def _shapes_c(shapes: Shapes) -> ctypes.c_void_p:
     return ctypes.cast((ctypes.c_int * len(flat))(*flat), ctypes.c_void_p)
 
 
-def _launch_bwd(lib, value, shapes: Shapes, loc, attn, grad_out, radius, ref):
+def _radii_c(radii) -> Optional[ctypes.c_void_p]:
+    """The P radii as a host array of f32 for the launcher, which copies
+    them into the kernel's parameters; None (unclamped) as a null pointer."""
+    if radii is None:
+        return None
+    return ctypes.cast((ctypes.c_float * len(radii))(*radii), ctypes.c_void_p)
+
+
+def _launch_bwd(lib, value, shapes: Shapes, loc, attn, grad_out, radii, ref):
     """K2: (d value, d loc, d attn). The kernel sums d value in an f32
     accumulator, which it zeroes, and rounds it to value's type once (for
     f32 the accumulator is d value)."""
@@ -378,66 +414,70 @@ def _launch_bwd(lib, value, shapes: Shapes, loc, attn, grad_out, radius, ref):
     with torch.cuda.device(value.device):
         rc = lib.psalm_msdeform_bwd(
             value.data_ptr(), loc.data_ptr(), attn.data_ptr(),
-            ref.data_ptr() if radius is not None else None,
+            ref.data_ptr() if radii is not None else None,
             grad_out.data_ptr(), grad_value.data_ptr(), acc.data_ptr(),
             grad_loc.data_ptr(), grad_attn.data_ptr(),
             _build.DTYPE_CODES[value.dtype], B, S, Q, M, D, L, P,
-            _shapes_c(shapes), float(radius) if radius is not None else 0.0,
-            int(radius is not None), _build.stream_ptr(value.device))
+            _shapes_c(shapes), _radii_c(radii),
+            _build.stream_ptr(value.device))
     _build.check(lib, rc, "psalm_msdeform_bwd")
     BWD_LAUNCHES += 1
     return grad_value, grad_loc, grad_attn
 
 
 def _prepare(value, spatial_shapes, level_start, loc, attn, radius, ref):
-    """The loaded library, the shapes and the clamp's reference grid, after
-    the inputs are checked."""
+    """The loaded library, the shapes, the points' radii and the clamp's
+    reference grid, after the inputs are checked."""
     lib = _build.library()
     shapes = as_shapes(spatial_shapes)
     _check_level_start(shapes, level_start)
-    if radius is not None:
+    radii = point_radii(radius, loc.shape[-2])  # loc [..., P, 2]
+    if radii is not None and len(radii) > MAX_POINTS:
+        raise ValueError(f"the clamped kernels take at most {MAX_POINTS} "
+                         f"points, got P={len(radii)}")
+    if radii is not None:
         ref = _ref_tensor(ref, shapes, loc.shape[1], value.device)
-    _check_inputs(value, loc, attn, ref if radius is not None else None, shapes)
-    return lib, shapes, ref
+    _check_inputs(value, loc, attn, ref if radii is not None else None, shapes)
+    return lib, shapes, radii, ref
 
 
 class _MSDeformAttn(torch.autograd.Function):
-    """K1 forward, K2 backward; no gradient for the shapes, radius or ref."""
+    """K1 forward, K2 backward; no gradient for the shapes, radii or ref."""
 
     @staticmethod
-    def forward(ctx, value, loc, attn, lib, shapes, radius, ref):
+    def forward(ctx, value, loc, attn, lib, shapes, radii, ref):
         ctx.save_for_backward(value, loc, attn, ref)
-        ctx.lib, ctx.shapes, ctx.radius = lib, shapes, radius
-        return _launch_fwd(lib, value, shapes, loc, attn, radius, ref)
+        ctx.lib, ctx.shapes, ctx.radii = lib, shapes, radii
+        return _launch_fwd(lib, value, shapes, loc, attn, radii, ref)
 
     @staticmethod
     def backward(ctx, grad_out):
         value, loc, attn, ref = ctx.saved_tensors
         grads = _launch_bwd(ctx.lib, value, ctx.shapes, loc, attn,
-                            grad_out.contiguous(), ctx.radius, ref)
+                            grad_out.contiguous(), ctx.radii, ref)
         return (*grads, None, None, None, None)
 
 
 def ms_deform_attn(value: torch.Tensor, spatial_shapes, level_start,
-                   loc: torch.Tensor, attn: torch.Tensor,
-                   radius: Optional[float] = None,
+                   loc: torch.Tensor, attn: torch.Tensor, radius=None,
                    ref: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Deformable sampler. A CPU tensor goes to the plain version; a CUDA
     tensor launches the CUDA kernel (csrc/msdeform.cu) or raises. Its
-    gradient is kernel K2 on the card (csrc/msdeform_bwd.cu)."""
+    gradient is kernel K2 on the card (csrc/msdeform_bwd.cu). ``radius``:
+    None (exact), one clamp radius, or one a point."""
     if value.device.type == "cpu":
         return ms_deform_attn_ref(value, spatial_shapes, level_start, loc,
                                   attn, radius=radius, ref=ref)
-    lib, shapes, ref = _prepare(value, spatial_shapes, level_start, loc, attn,
-                                radius, ref)
+    lib, shapes, radii, ref = _prepare(value, spatial_shapes, level_start,
+                                       loc, attn, radius, ref)
     if torch.is_grad_enabled() and (value.requires_grad or loc.requires_grad
                                     or attn.requires_grad):
-        return _MSDeformAttn.apply(value, loc, attn, lib, shapes, radius, ref)
-    return _launch_fwd(lib, value, shapes, loc, attn, radius, ref)
+        return _MSDeformAttn.apply(value, loc, attn, lib, shapes, radii, ref)
+    return _launch_fwd(lib, value, shapes, loc, attn, radii, ref)
 
 
 def ms_deform_attn_bwd_ref(value, spatial_shapes, level_start, loc, attn,
-                           grad_out, radius: Optional[float] = None,
+                           grad_out, radius=None,
                            ref: Optional[torch.Tensor] = None):
     """The plain twin of K2: (d value, d loc, d attn) by autograd through
     ``ms_deform_attn_ref``."""
@@ -449,7 +489,7 @@ def ms_deform_attn_bwd_ref(value, spatial_shapes, level_start, loc, attn,
 
 
 def ms_deform_attn_bwd(value, spatial_shapes, level_start, loc, attn,
-                       grad_out, radius: Optional[float] = None,
+                       grad_out, radius=None,
                        ref: Optional[torch.Tensor] = None):
     """(d value, d loc, d attn) of ``ms_deform_attn`` for the output gradient
     ``grad_out`` [B, Q, M * D]: ``ms_deform_attn_bwd_ref`` for a CPU tensor,
@@ -457,6 +497,6 @@ def ms_deform_attn_bwd(value, spatial_shapes, level_start, loc, attn,
     if value.device.type == "cpu":
         return ms_deform_attn_bwd_ref(value, spatial_shapes, level_start, loc,
                                       attn, grad_out, radius=radius, ref=ref)
-    lib, shapes, ref = _prepare(value, spatial_shapes, level_start, loc, attn,
-                                radius, ref)
-    return _launch_bwd(lib, value, shapes, loc, attn, grad_out, radius, ref)
+    lib, shapes, radii, ref = _prepare(value, spatial_shapes, level_start,
+                                       loc, attn, radius, ref)
+    return _launch_bwd(lib, value, shapes, loc, attn, grad_out, radii, ref)

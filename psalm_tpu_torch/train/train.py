@@ -33,9 +33,8 @@ generator), and ``--lora_rank`` > 0 puts LoRA adapters on Phi's linears
 and trains ``train/lora.py``'s ``psalm_finetune_mask`` (the adapters and
 every module but the tower and Phi's base).
 
-Not ported (``ROADMAP.md``): per-point window radii (the pixel decoder
-raises), data parallelism and ZeRO sharding, and orbax checkpoints
-(``torch.save`` files instead).
+Not ported (``ROADMAP.md``): data parallelism and ZeRO sharding, and
+orbax checkpoints (``torch.save`` files instead).
 
 Two differences from JAX's trainer, both on the mm_conv loss: the port runs
 it with the tower frozen unless ``--train_backbone`` (JAX calls the model
@@ -150,8 +149,9 @@ def parse_args(argv=None):
                         "'dense' (kernel K5, 2 heads) replaces the sampler "
                         "with full attention over the encoder tokens")
     p.add_argument("--window_point_radii", default="",
-                   help="per-point clamp radii for window mode (not ported: "
-                        "the pixel decoder raises, see ROADMAP.md)")
+                   help="per-point clamp radii for window mode, e.g. "
+                        "'2,4,6,8' (one for each of enc_points; K1 and K2 "
+                        "clamp point p at its own radius)")
     p.add_argument("--remat_pixel_decoder", type=int, default=-1,
                    help="1/0 = force pixel-decoder gradient checkpointing "
                         "on/off; -1 follows --gradient_checkpointing, except "

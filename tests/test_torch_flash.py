@@ -198,7 +198,8 @@ def test_dense_pixel_decoder_matches_jax(setup):  # noqa: F811
 
 def test_dense_mode_builds_and_inits():
     """The dense pixel decoder takes JAX's parameter names and the init
-    recipe's LeCun-normal linears; per-point radii still raise."""
+    recipe's LeCun-normal linears; it ignores per-point radii, which the
+    window mode takes (one clamp radius a point, K1's ``radius``)."""
     cfg = tiny_test_config()
     cfg = cfg.replace(pixel_decoder=_dense_cfg(cfg))
     model = init_weights_(PSALM(cfg, device="cpu"),
@@ -211,7 +212,10 @@ def test_dense_mode_builds_and_inits():
     std = layer.q_proj.weight.std().item()
     assert 0.5 / np.sqrt(32) < std < 2.0 / np.sqrt(32)
     assert torch.count_nonzero(layer.q_proj.bias) == 0
-    with pytest.raises(NotImplementedError, match="window_point_radii"):
-        MSDeformAttnPixelDecoder(dataclasses.replace(
-            cfg.pixel_decoder, attention_mode="window",
-            window_point_radii=(2.0, 4.0, 6.0, 8.0)))
+    radii = (2.0, 4.0, 6.0, 8.0)
+    assert MSDeformAttnPixelDecoder(dataclasses.replace(
+        cfg.pixel_decoder, window_point_radii=radii)).radius is None
+    window = MSDeformAttnPixelDecoder(dataclasses.replace(
+        cfg.pixel_decoder, attention_mode="window", window_point_radii=radii))
+    assert window.radius == radii
+    assert window.transformer.encoder.layers[0].self_attn.radius == radii

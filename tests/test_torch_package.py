@@ -33,14 +33,16 @@ def test_no_jax_behind_the_package():
               "serve.web_server", "serve.cli", "serve.register_worker",
               "serve.moderation", "serve.test_message",
               "checkpoint.weight_tools", "checkpoint.from_jax",
-              "data.prefetch", "train.lora"):
+              "data.prefetch", "train.lora", "bench"):
         assert f"psalm_tpu_torch.{m}" in mods
+    # the bench imports transformers only inside its baseline function
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m in ('jax', 'flax', 'optax')\n"
             "       or m == 'psalm_tpu' or m.startswith('psalm_tpu.')]\n"
-            "assert not bad, bad\n")
+            "assert not bad, bad\n"
+            "assert 'transformers' not in sys.modules\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
@@ -97,6 +99,24 @@ def test_wrappers_check_inputs_before_launch(monkeypatch):
     with pytest.raises(ValueError, match="meta"):
         swin_attention.window_attention(*_swin_args("meta"))
     assert (msdeform.LAUNCHES, swin_attention.LAUNCHES) == (n1, n3)
+
+
+def test_sampler_takes_at_most_32_clamped_points(monkeypatch):
+    """The radii ride in a fixed array of the kernels' launch parameters
+    (csrc/msdeform_common.cuh::kMaxPoints): more clamped points are
+    refused before a launch; unclamped ones are not limited."""
+    monkeypatch.setattr(_build, "library", lambda: None)
+    shapes = ((2, 2),)
+    value = torch.empty(1, 4, 1, 8, device="meta")
+    loc = torch.empty(1, 4, 1, 1, 33, 2, device="meta")
+    attn = torch.empty(1, 4, 1, 1, 33, device="meta")
+    args = (value, shapes, (0,), loc, attn)
+    with pytest.raises(ValueError, match="at most 32 points"):
+        msdeform.ms_deform_attn(*args, radius=1.0)
+    with pytest.raises(ValueError, match="per-point radii: got 2, P=33"):
+        msdeform.ms_deform_attn(*args, radius=(1.0, 2.0))
+    with pytest.raises(ValueError, match="value is on meta"):
+        msdeform.ms_deform_attn(*args)
 
 
 def test_nvcc_command_targets_sm90a():
@@ -530,6 +550,52 @@ def test_sampler_kernels_take_every_layout_on_the_card(dtype, D, L, P):
         for name, a, b, lim in zip(("value", "loc", "attn"), got, want,
                                    limits):
             assert ((a.float() - b).abs() <= lim).all(), (radius, name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,L,P", [(32, 3, 4), (6, 3, 4), (32, 2, 3),
+                                   (8, 3, 5)])
+def test_sampler_kernels_take_a_radius_per_point_on_the_card(dtype, D, L, P):
+    """K1 and K2 with one clamp radius a point against their twins, within
+    ``ms_deform_attn_limit`` and ``ms_deform_attn_bwd_limit``, in the
+    model's instantiation (L = 3, P = 4) and the run-time one (the radii
+    indexed by a loop variable), with 16-byte vectors and single channels;
+    offsets to +-3 px, so that the smaller radii clip and the larger do not;
+    and a flat radius as a P-vector takes the float's bits."""
+    _require_card()
+    shapes = ((6, 8), (4, 4), (2, 3))[:L]
+    S, M = sum(h * w for h, w in shapes), 2
+    g = torch.Generator().manual_seed(D + L + P)
+    ref = torch.from_numpy(msdeform.reference_grid(shapes))  # [S, L, 2] px
+    off = (torch.rand(1, S, M, L, P, 2, generator=g) * 2 - 1) * 3
+    wh = torch.tensor([[w, h] for h, w in shapes], dtype=torch.float32)
+    loc = ((ref[None, :, None, :, None, :] + 0.5 + off) / wh[:, None, :]
+           ).contiguous().cuda()
+    value = torch.randn(1, S, M, D, generator=g).to("cuda", dtype)
+    attn = torch.rand(1, S, M, L, P, generator=g).to("cuda", dtype)
+    grad = torch.randn(1, S, M * D, generator=g).to("cuda", dtype)
+    starts = msdeform.level_starts(shapes)
+    radii = tuple(0.5 + p for p in range(P))
+    args = (value, shapes, starts, loc, attn)
+    plain = (value.float(), shapes, starts, loc, attn.float())
+    got = msdeform.ms_deform_attn(*args, radius=radii)
+    want = msdeform.ms_deform_attn_ref(*plain, radius=radii)
+    mag = msdeform.ms_deform_attn_magnitude(*plain, radius=radii)
+    limit = msdeform.ms_deform_attn_limit(want, mag, dtype)
+    assert ((got.float() - want).abs() <= limit).all()
+    flat = msdeform.ms_deform_attn_ref(*plain, radius=radii[0])
+    assert not ((flat - want).abs() <= limit).all()
+    got = msdeform.ms_deform_attn_bwd(*args, grad, radius=radii)
+    want = msdeform.ms_deform_attn_bwd_ref(*plain, grad.float(), radius=radii)
+    mag = msdeform.ms_deform_attn_bwd_magnitude(*plain, grad.float(),
+                                                radius=radii)
+    limits = msdeform.ms_deform_attn_bwd_limit(want, mag, dtype)
+    for name, a, b, lim in zip(("value", "loc", "attn"), got, want, limits):
+        assert ((a.float() - b).abs() <= lim).all(), name
+    for r in (1.5, 2.25):
+        assert torch.equal(msdeform.ms_deform_attn(*args, radius=r),
+                           msdeform.ms_deform_attn(*args, radius=(r,) * P))
 
 
 @pytest.mark.gpu

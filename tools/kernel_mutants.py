@@ -30,7 +30,10 @@ exits nonzero if a mutant passed.
                      dS = P o (dP - rowsum(P o dP)) (check_k3_bwd);
   k3_bwd_unsummed    the bf16 K3 backward's d bias sum taking one group's
                      partial in place of the sum of the groups' partials
-                     (check_k3_bwd).
+                     (check_k3_bwd);
+  k1_k2_one_radius   K1 and K2 clamping every sampling point at the first
+                     point's radius in place of its own (check_point_radii,
+                     radii 2, 4, 6, 8).
 """
 
 import os
@@ -92,6 +95,9 @@ MUTANTS = {
     "k3_bwd_unsummed": ("check_k3_bwd", "swin_attention", [
         (f"{CSRC}/swin_attention_bwd.cu", "sum += p[i * nn];",
          "sum = p[i * nn];")]),
+    "k1_k2_one_radius": ("check_point_radii", "msdeform", [
+        (f"{CSRC}/msdeform_common.cuh", "const float radius = radii.r[p];",
+         "const float radius = radii.r[0];")]),
 }
 
 

@@ -240,9 +240,9 @@ def deform_call(lib, name, dtype, radius, backward):
     ref = k1.reference_grid(shapes)
     ref = torch.from_numpy(ref).cuda()
     shapes_c = k1._shapes_c(shapes)
+    radii_c = k1._radii_c(k1.point_radii(radius, P))
     common = (_build.DTYPE_CODES[dtype], B, S, Q, M, D, L, P, shapes_c,
-              float(radius or 0.0), int(radius is not None),
-              _build.stream_ptr(value.device))
+              radii_c, _build.stream_ptr(value.device))
     if backward:
         grad_value = torch.empty_like(value)
         acc = torch.empty(B, S, M, D, device="cuda")
