@@ -225,6 +225,19 @@ Phases, each of which must pass:
                keeps the coordinates' bits: windowpp's maps must equal
                deformable's. The bench's JSON line, without the CPU
                baseline.
+ 19. train distributed - a plain Trainer's first step at the full
+               published width (phase 10's recipe and sample), then
+               torch.distributed under NCCL at world 1 (torchrun's
+               environment, init_distributed, make_mesh(1, 1)), the code
+               path of a multi-card run: Trainer(mesh=) with ZeroOptimizer
+               on the same seed and batch, its first step's losses within
+               1e-3 and grad norm within 1e-2 of the plain one's; 3 timed
+               steps, 12 K1, 6 K2 and 24 K3 a step; the NCCL kernels' share
+               of a traced step; a sharded save and a resume that gives the
+               count, the step, the parameters and the moment slices bit
+               for bit; dryrun_multichip(1, "cuda"); an EvalRunner(mesh=)
+               image on phase 5's model and batch whose maps equal phase
+               5's (6 K1, 24 K3). The group is destroyed at the end.
 
 Each path zeroes the launch counters just before its timed run and reads
 them just after. f32 comparisons run with TF32 off. On the line before the
@@ -1408,6 +1421,7 @@ def eval_slice(torch, np, card, path_ms, timings):
         f"{np.unique(sem).tolist()[:10]}")
     p50 = sorted(times)[len(times) // 2]
     timings["eval p50 ms"] = p50 * 1e3
+    timings["eval maps"] = (pan, sem)  # phase 19's data-parallel runner's
     log(f"eval slice: p50 {p50 * 1e3:.2f} ms, {TIMED_IMAGES / wall:.3f} img/s "
         f"({TIMED_IMAGES} images, batch 1, bf16) on {card}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -1640,10 +1654,11 @@ def train_small(torch, np):
     return launches
 
 
-def train_slice(torch, np, card, mode, path_ms):
+def train_slice(torch, np, card, mode, path_ms, timings):
     """Phases 10 and 11: the Trainer at the full published width; returns
-    the launches of the timed steps and keeps K1's and K2's device ms per
-    launch in ``path_ms`` (deformable)."""
+    the launches of the timed steps, keeps K1's and K2's device ms per
+    launch in ``path_ms`` (deformable) and the median step in
+    ``timings``."""
     import dataclasses
     from psalm_tpu_torch.data.datasets import (SyntheticPanopticDataset,
                                                UnifiedTaskSampler, collate)
@@ -1716,6 +1731,9 @@ def train_slice(torch, np, card, mode, path_ms):
     if counts != expect:
         fail(f"train {mode}: kernel launches {counts} != {expect}")
     pd = cfg.pixel_decoder
+    timings[f"train {mode} ms"] = sorted(times)[len(times) // 2] * 1e3
+    timings[f"train {mode} peak GiB"] = (torch.cuda.max_memory_allocated()
+                                         / 2**30)
     log(f"train {mode}: step ms {[round(t * 1e3, 2) for t in times]} "
         f"(median {sorted(times)[len(times) // 2] * 1e3:.2f}; warm-up "
         f"{warm_s * 1e3:.0f} ms), batch 1, bf16 compute, f32 parameters, "
@@ -3470,6 +3488,198 @@ def bench_slice(torch, np, card):
         f"{json.dumps(line)}")
     return paths
 
+# -- phase 19: distribution at world 1 under NCCL ----------------------------
+DIST_TIMED = 3
+
+
+def first_step(trainer, batch):
+    """The first step's metrics, as floats."""
+    return {k: float(v) for k, v in trainer.step(batch).items()}
+
+
+def optimizer_snapshot(opt):
+    """This rank's moment slices, the count, on the host."""
+    return opt.count, {n: {k: t.detach().cpu() for k, t in m.items()}
+                       for n, m in opt.state_dict()["moments"].items()}
+
+
+def train_dist_slice(torch, np, card, timings):
+    """Phase 19: the distributed training path on one card, world 1 under
+    NCCL (the code path of a multi-card run): a plain Trainer's first step,
+    then Trainer(mesh=) with ZeroOptimizer on the same seed and batch, its
+    first step held to the plain one, 3 timed steps with their launches, a
+    traced step's NCCL share, a sharded save and a resume held bit for bit,
+    dryrun_multichip(1, "cuda"), and an EvalRunner(mesh=) image held to
+    phase 5's maps; the group is destroyed at the end."""
+    import torch.distributed as dist
+    from psalm_tpu_torch import PSALMConfig
+    from psalm_tpu_torch.data.datasets import (SyntheticPanopticDataset,
+                                               UnifiedTaskSampler, collate)
+    from psalm_tpu_torch.eval.runner import EvalRunner, synthetic_panoptic_batch
+    from psalm_tpu_torch.models.psalm import PSALM, init_weights_
+    from psalm_tpu_torch.parallel.dryrun import dryrun_multichip
+    from psalm_tpu_torch.parallel.mesh import (free_port, init_distributed,
+                                               make_mesh)
+    from psalm_tpu_torch.train.train import Trainer, build_train_config
+    from psalm_tpu_torch.train.train_step import ZeroOptimizer
+    out_dir = os.path.join(HERE, "build", "train_dist")
+    if os.path.isdir(out_dir):
+        import shutil
+        shutil.rmtree(out_dir)
+    args = train_args(output_dir=out_dir)
+    cfg = build_train_config(args)
+    K = cfg.num_classes + 1
+    ds = SyntheticPanopticDataset(cfg.image_size, cfg.mask_decoder.num_queries,
+                                  K, num_samples=4, num_masks=16)
+    sampler = UnifiedTaskSampler([ds], batch_size=1)
+    batches = [collate(sampler.next_batch()) for _ in range(1 + DIST_TIMED)]
+
+    plain = Trainer(args, cfg, device="cuda")
+    want = first_step(plain, batches[0])
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torchrun = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                    MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
+    os.environ.update(torchrun)
+    try:
+        init_distributed("cuda")
+        if dist.get_backend() != "nccl":
+            fail(f"train dist: backend {dist.get_backend()}, not nccl")
+        mesh = make_mesh(1, 1, device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        trainer = Trainer(args, cfg, mesh=mesh)
+        if not isinstance(trainer.optimizer, ZeroOptimizer):
+            fail("train dist: Trainer(mesh=) did not take ZeroOptimizer")
+        got = first_step(trainer, batches[0])
+        torch.cuda.synchronize()
+        log(f"set up and first step in {time.perf_counter() - t0:.1f} s")
+        for k in ("loss_mask", "loss_dice", "loss_class_name_class", "loss"):
+            if not abs(got[k] - want[k]) <= 1e-3 * abs(want[k]):
+                fail(f"train dist first step {k}: {got[k]} vs the plain "
+                     f"Trainer's {want[k]}")
+        if not abs(got["grad_norm"] - want["grad_norm"]) <= \
+                1e-2 * want["grad_norm"]:
+            fail(f"train dist first step grad_norm: {got['grad_norm']} vs "
+                 f"{want['grad_norm']}")
+        log("first step within 1e-3 (losses) and 1e-2 (grad norm) of the "
+            "plain Trainer's: " + ", ".join(
+                f"{k} {got[k]:.6f} / {want[k]:.6f}" for k in
+                ("loss_mask", "loss_dice", "loss_class_name_class", "loss",
+                 "grad_norm")))
+        zero_counts()
+        times = []
+        for batch in batches[1:]:
+            t0 = time.perf_counter()
+            metrics = trainer.step(batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        counts = launch_counts()
+        values = {k: float(v) for k, v in metrics.items()}
+        if not all(np.isfinite(v) for v in values.values()):
+            fail(f"train dist: non-finite metrics {values}")
+        enc = cfg.pixel_decoder.transformer_enc_layers
+        expect = expected(K1=2 * enc * DIST_TIMED, K2=enc * DIST_TIMED,
+                          K3=sum(cfg.swin.depths) * DIST_TIMED)
+        if counts != expect:
+            fail(f"train dist: kernel launches {counts} != {expect}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        events, wall_us = device_trace(lambda: trainer.step(batches[-1]),
+                                       "train dist")
+        busy = sum(e.time_range.elapsed_us() for e in events)
+        nccl = [e for e in events if "nccl" in e.name.lower()]
+        nccl_us = sum(e.time_range.elapsed_us() for e in nccl)
+        # at data 1 the optimizer updates the parameters in place: no
+        # collective and no slice to copy
+        dtod_us = sum(e.time_range.elapsed_us() for e in events
+                      if "DtoD" in e.name)
+        med = sorted(times)[len(times) // 2] * 1e3
+        log(f"train dist: step ms {[round(t * 1e3, 2) for t in times]} "
+            f"(median {med:.2f}; phase 10's median "
+            f"{timings.get('train deformable ms', float('nan')):.2f}), batch 1, "
+            f"bf16 compute, f32 parameters, world 1 (NCCL) on {card}; peak "
+            f"memory {peak:.2f} GiB ({held / 2**30:.2f} GiB held before the "
+            f"phase; phase 10's peak "
+            f"{timings.get('train deformable peak GiB', float('nan')):.2f} "
+            f"GiB); traced step: {wall_us / 1e3:.2f} ms, "
+            f"device busy {busy / 1e3:.2f} ms, {len(nccl)} NCCL kernels "
+            f"{nccl_us / 1e3:.3f} ms = {nccl_us / wall_us:.4f} of the step "
+            f"({sorted({e.name for e in nccl})[:4]}), device-to-device "
+            f"copies {dtod_us / 1e3:.3f} ms; launches per step "
+            + ", ".join(f"{k} {v // DIST_TIMED}" for k, v in counts.items()
+                        if v))
+
+        t0 = time.perf_counter()
+        step = trainer.state.step
+        trainer.save(step)
+        saved = {n: p.detach().cpu() for n, p in trainer.trainable}
+        count, moments = optimizer_snapshot(trainer.optimizer)
+        save_s = time.perf_counter() - t0
+        del trainer, metrics
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        resumed = Trainer(args, cfg, mesh=mesh)
+        if resumed.try_resume() != step:
+            fail(f"train dist: resumed at step {resumed.state.step}, "
+                 f"saved at {step}")
+        count2, moments2 = optimizer_snapshot(resumed.optimizer)
+        bad = [n for n, p in resumed.trainable
+               if not torch.equal(p.detach().cpu(), saved[n])]
+        bad += [n for n, m in moments.items() for k in m
+                if not torch.equal(m[k], moments2[n][k])]
+        if count2 != count or set(moments2) != set(moments) or bad:
+            fail(f"train dist resume: count {count2} vs {count}, "
+                 f"{len(bad)} tensors differ ({bad[:3]})")
+        log(f"sharded save ({sorted(os.listdir(os.path.join(out_dir, f'checkpoint-{step}')))}"
+            f") in {save_s:.1f} s and resume in "
+            f"{time.perf_counter() - t0:.1f} s: step {step}, count {count}, "
+            f"{len(saved)} parameters and {2 * len(moments)} moment slices "
+            "bit for bit")
+        del resumed, saved, moments, moments2
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        dry = dryrun_multichip(1, device="cuda")[0]
+        log(f"dryrun_multichip(1, 'cuda') in {time.perf_counter() - t0:.1f} s:"
+            f" data {dry['data']}, model {dry['model']}, loss "
+            f"{dry['metrics']['loss']:.5f}, {dry['moments_split']} moments "
+            f"split (none at data 1), eval of {dry['images']} image(s), "
+            f"{dry['segments']} segments")
+
+        ecfg = PSALMConfig(compute_dtype="bfloat16")
+        model = PSALM(ecfg, dtype=torch.bfloat16, device="cuda")
+        init_weights_(model, torch.Generator(device="cuda").manual_seed(0))
+        model.to(torch.bfloat16)  # phase 5's model
+        batch = synthetic_panoptic_batch(ecfg, 1, K, CONTENT_HW, ORIGINAL_HW)
+        runner = EvalRunner(model, ecfg, num_class_names=K,
+                            is_thing=[i % 2 == 0 for i in range(K - 1)],
+                            bucket_hw=BUCKET_HW, mesh=mesh)
+        runner.infer(batch)
+        torch.cuda.synchronize()
+        zero_counts()
+        res = runner.infer(batch)
+        eval_counts = launch_counts()
+        pan, sem = timings["eval maps"]
+        if not (np.array_equal(res["panoptic_seg"][0], pan)
+                and np.array_equal(res["sem_seg"][0], sem)):
+            fail("train dist: EvalRunner(mesh=)'s maps differ from phase 5's")
+        expect = expected(K1=enc, K3=sum(ecfg.swin.depths))
+        if eval_counts != expect:
+            fail(f"train dist eval: launches {eval_counts} != {expect}")
+        log(f"EvalRunner(mesh=): panoptic_seg and sem_seg equal to phase 5's "
+            f"({ORIGINAL_HW}); launches {eval_counts}")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in torchrun:
+            os.environ.pop(k, None)
+    return {"train dist": counts, "train dist/eval": eval_counts}
+
 
 def main():
     if not os.path.isdir(os.path.join(HERE, "psalm_tpu_torch")):
@@ -3544,11 +3754,11 @@ def main():
     paths.update(train_small(torch, np))
 
     log("== training (PSALMConfig(), deformable, bf16, Trainer.step)")
-    paths.update(train_slice(torch, np, card, "deformable", path_ms))
+    paths.update(train_slice(torch, np, card, "deformable", path_ms, timings))
     torch.cuda.empty_cache()
 
     log("== training, dense pixel decoder (attention_mode='dense', 2 heads)")
-    paths.update(train_slice(torch, np, card, "dense", path_ms))
+    paths.update(train_slice(torch, np, card, "dense", path_ms, timings))
     torch.cuda.empty_cache()
 
     log("== small CLIs (tiny config, f32: card kernels vs CPU plain)")
@@ -3599,6 +3809,12 @@ def main():
     log("== bench (psalm_tpu_torch.bench.measure_mode: window8, window4, "
         "deformable, windowpp; PSALMConfig(), bf16, use_flash)")
     paths.update(bench_slice(torch, np, card))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("== train distributed (NCCL at world 1, make_mesh(1, 1), "
+        "Trainer(mesh=), ZeroOptimizer, PSALMConfig(), deformable, bf16)")
+    paths.update(train_dist_slice(torch, np, card, timings))
 
     bad = [m for m in sys.modules if m in ("jax", "flax", "optax")
            or m == "psalm_tpu" or m.startswith("psalm_tpu.")]

@@ -24,6 +24,13 @@ metrics, and
 restore the ground truth with ``restore_map`` / ``restore_masks`` (OpenCV,
 as JAX's runner).
 
+With a ``mesh`` (``parallel/mesh.py``; JAX's ``EvalRunner(mesh=)``, which
+shards the batch over 'data'), each data rank infers its rows of the batch
+(``local_rows``) and the host results are gathered over the data group in
+batch order (``all_gather_object``: the maps are ragged), so every rank
+returns the whole batch's. The batch size must be a multiple of the data
+size.
+
 The JAX runner's window-clamp telemetry and radius auto-raise are not
 ported: the port's default sampler is exact and has no radius to raise.
 """
@@ -35,10 +42,12 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from psalm_tpu_torch.config import PSALMConfig, SegTask
 from psalm_tpu_torch.eval import geometry, postprocess
 from psalm_tpu_torch.ops.sampling import resize_bilinear
+from psalm_tpu_torch.parallel.mesh import local_rows
 
 # arrays of the batch that the device never reads
 _HOST_ONLY = {"dataset_type", "image_id", "num_class_names", "gt_masks",
@@ -194,12 +203,25 @@ def load_eval_model(model_path: str, seg_task: SegTask,
     return tokenizer, model, model.cfg
 
 
+def _join(parts):
+    """Per-rank results of ``EvalRunner.infer`` -> one, in rank order:
+    lists and arrays concatenated, dicts joined key by key."""
+    first = parts[0]
+    if isinstance(first, dict):
+        return {k: _join([p[k] for p in parts]) for k in first}
+    if isinstance(first, list):
+        return [x for p in parts for x in p]
+    return np.concatenate(parts)
+
+
 class EvalRunner:
     def __init__(self, model, cfg: PSALMConfig, num_class_names=None,
-                 is_thing=None, bucket_hw: Optional[Tuple[int, int]] = None):
+                 is_thing=None, bucket_hw: Optional[Tuple[int, int]] = None,
+                 mesh=None):
         self.task = SegTask(cfg.seg_task.value)
         self.model = model
         self.cfg = cfg
+        self.mesh = mesh
         self.device = next(model.parameters()).device
         self.num_class_names = num_class_names or cfg.num_classes + 1
         self.is_thing = (np.asarray(is_thing, bool) if is_thing is not None
@@ -307,8 +329,20 @@ class EvalRunner:
     def infer(self, batch: Dict[str, np.ndarray],
               staged: Optional[Dict[str, torch.Tensor]] = None
               ) -> Dict[str, Any]:
+        """The batch's results (with a mesh: every rank's rows, on every
+        rank; ``staged`` is then this rank's rows)."""
         if "original_hw" in batch:
             self._maybe_grow_bucket(batch)
+        if self.mesh is not None:
+            out = self._infer_rows(local_rows(batch, self.mesh), staged)
+            parts = [None] * self.mesh.data
+            dist.all_gather_object(parts, out, group=self.mesh.data_group)
+            return _join(parts)
+        return self._infer_rows(batch, staged)
+
+    def _infer_rows(self, batch: Dict[str, np.ndarray],
+                    staged: Optional[Dict[str, torch.Tensor]]
+                    ) -> Dict[str, Any]:
         content = _content_hw(batch, self.cfg.image_size)
         if "original_hw" in batch:
             original = np.asarray(batch["original_hw"]).reshape(-1, 2)

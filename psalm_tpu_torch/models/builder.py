@@ -14,7 +14,8 @@ compute (``param_dtype=torch.float32``) and passes PSALM's training options
 > 0 the released Phi linears are grafted under the LoRA layers' ``base.``
 (``train/lora.py::graft_base_params``) and the adapters are drawn from
 ``lora_seed``. Orbax directories (the JAX package's own checkpoints) need
-JAX's stack to read and raise ``NotImplementedError``.
+JAX's stack to read: they raise ``NotImplementedError`` naming
+``tools/orbax_to_torch.py``, which converts one into such a directory.
 """
 
 from __future__ import annotations
@@ -115,7 +116,9 @@ def load_pretrained_model(model_path: str,
             os.path.exists(os.path.join(model_path, "manifest.ocdbt")):
         raise NotImplementedError(
             f"{model_path} is an orbax checkpoint of psalm_tpu; reading one "
-            "needs JAX (convert it to a released-format state dict first)")
+            "needs JAX: convert it where JAX is installed with python3 "
+            f"tools/orbax_to_torch.py --orbax {model_path} --out DIR and "
+            "load DIR")
     if cfg is None:
         # a converted checkpoint directory carries its own config
         cfg_path = os.path.join(model_path, "psalm_tpu_config.json")

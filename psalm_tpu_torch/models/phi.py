@@ -41,6 +41,16 @@ JAX), a full-sequence forward that records gradients keeps only each
 layer's input and recomputes the layer in the backward
 (``torch.utils.checkpoint``, non-reentrant).
 
+With a ``mesh`` of model size m > 1 (``parallel/mesh.py``), each decoder
+layer is tensor-parallel over the mesh's model group, Megatron style, on
+the slices ``shard_state_dict`` gives it: q/k/v and fc1 are column-parallel
+(this rank's num_heads / m heads and intermediate_size / m channels; the
+partial rotary is per head), dense and fc2 row-parallel. The parallel block
+x + attn(ln x) + mlp(ln x) sums the two row-parallel partials and
+all-reduces once, then adds dense's and fc2's whole biases. The full-
+sequence forward only (no KV cache), float linears only (no LoRA, int8 or
+int4). With m = 1 the modules are the single-process ones.
+
 Parameter names are the released checkpoint's (``model.embed_tokens``,
 ``model.layers.N.*``, ``model.final_layernorm``).
 """
@@ -59,6 +69,8 @@ from psalm_tpu_torch.config import PhiConfig
 from psalm_tpu_torch.models.layers import LayerNorm
 from psalm_tpu_torch.models.quant import make_dense
 from psalm_tpu_torch.ops.flash_attention import flash_attention
+from psalm_tpu_torch.parallel.tensor_parallel import (copy_to_group,
+                                                      reduce_from_group)
 
 NEG = -1e9
 
@@ -125,18 +137,39 @@ class KVCache:
         return other
 
 
+def tp_parts(cfg: PhiConfig, mesh) -> int:
+    """The model size m that Phi's layers split over (1 without a mesh);
+    raises where they cannot split."""
+    m = 1 if mesh is None else mesh.model
+    if m > 1:
+        if cfg.lora_rank or cfg.quant_bits:
+            raise ValueError(
+                "tensor parallelism (model > 1) takes Phi's float linears "
+                f"only, not lora_rank={cfg.lora_rank} or "
+                f"quant_bits={cfg.quant_bits}")
+        if cfg.num_heads % m or cfg.intermediate_size % m or \
+                cfg.vocab_size % m:
+            raise ValueError(f"Phi's heads, MLP and vocabulary do not split "
+                             f"into model {m}")
+    return m
+
+
 class PhiAttention(nn.Module):
     def __init__(self, cfg: PhiConfig, dtype=torch.float32, device=None,
-                 use_flash: bool = False):
+                 use_flash: bool = False, mesh=None):
         super().__init__()
         self.cfg = cfg
         self.use_flash = use_flash
         D = cfg.hidden_size
-        self.q_proj = make_dense(cfg, D, D, dtype=dtype, device=device)
-        self.k_proj = make_dense(cfg, D, D, dtype=dtype, device=device)
-        self.v_proj = make_dense(cfg, D, D, dtype=dtype, device=device)
-        self.dense = make_dense(cfg, D, D, dtype=dtype, device=device)
+        m = tp_parts(cfg, mesh)
+        self.heads = cfg.num_heads // m
+        self.width = self.heads * cfg.head_dim
+        self.q_proj = make_dense(cfg, D, self.width, dtype=dtype, device=device)
+        self.k_proj = make_dense(cfg, D, self.width, dtype=dtype, device=device)
+        self.v_proj = make_dense(cfg, D, self.width, dtype=dtype, device=device)
+        self.dense = make_dense(cfg, self.width, D, dtype=dtype, device=device)
         self.dtype = dtype
+        self.partial = m > 1  # return dense's product without its bias
 
     def forward(self, x, attn_bias, cos, sin, cache: Optional[KVCache] = None,
                 layer: int = 0, slots: Optional[torch.Tensor] = None):
@@ -146,8 +179,8 @@ class PhiAttention(nn.Module):
         of each new token, attending to the cache's first ``cache.span``
         slots."""
         c = self.cfg
-        B, L, D = x.shape
-        h, hd = c.num_heads, c.head_dim
+        B, L, _ = x.shape
+        h, hd, D = self.heads, c.head_dim, self.width
         q = apply_partial_rotary(self.q_proj(x).reshape(B, L, h, hd), cos, sin,
                                  c.rotary_dim).transpose(1, 2)
         k = apply_partial_rotary(self.k_proj(x).reshape(B, L, h, hd), cos, sin,
@@ -168,58 +201,83 @@ class PhiAttention(nn.Module):
                                   k.to(self.dtype).contiguous(),
                                   v.to(self.dtype).contiguous(), causal=True,
                                   sm_scale=1.0 / math.sqrt(hd))
-            return self.dense(out.transpose(1, 2).reshape(B, L, D))
+            return self._out(out.transpose(1, 2).reshape(B, L, D))
         attn = torch.einsum("bhld,bhsd->bhls", q.float(), k.float())
         attn = attn / math.sqrt(hd) + attn_bias
         attn = torch.softmax(attn, dim=-1).to(self.dtype)
         out = torch.einsum("bhls,bhsd->blhd", attn, v.to(self.dtype))
-        return self.dense(out.reshape(B, L, D))
+        return self._out(out.reshape(B, L, D))
+
+    def _out(self, x: torch.Tensor) -> torch.Tensor:
+        if self.partial:
+            return F.linear(x.to(self.dtype), self.dense.weight.to(self.dtype))
+        return self.dense(x)
 
 
 class PhiMLP(nn.Module):
-    def __init__(self, cfg: PhiConfig, dtype=torch.float32, device=None):
+    def __init__(self, cfg: PhiConfig, dtype=torch.float32, device=None,
+                 mesh=None):
         super().__init__()
-        self.fc1 = make_dense(cfg, cfg.hidden_size, cfg.intermediate_size,
-                              dtype=dtype, device=device)
-        self.fc2 = make_dense(cfg, cfg.intermediate_size, cfg.hidden_size,
-                              dtype=dtype, device=device)
+        m = tp_parts(cfg, mesh)
+        inner = cfg.intermediate_size // m
+        self.fc1 = make_dense(cfg, cfg.hidden_size, inner, dtype=dtype,
+                              device=device)
+        self.fc2 = make_dense(cfg, inner, cfg.hidden_size, dtype=dtype,
+                              device=device)
+        self.dtype = dtype
+        self.partial = m > 1  # return fc2's product without its bias
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+        h = F.gelu(self.fc1(x), approximate="tanh")
+        if self.partial:
+            return F.linear(h.to(self.dtype), self.fc2.weight.to(self.dtype))
+        return self.fc2(h)
 
 
 class PhiDecoderLayer(nn.Module):
     def __init__(self, cfg: PhiConfig, dtype=torch.float32, device=None,
-                 use_flash: bool = False):
+                 use_flash: bool = False, mesh=None):
         super().__init__()
         self.input_layernorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps,
                                          device=device)
         self.self_attn = PhiAttention(cfg, dtype=dtype, device=device,
-                                      use_flash=use_flash)
-        self.mlp = PhiMLP(cfg, dtype=dtype, device=device)
+                                      use_flash=use_flash, mesh=mesh)
+        self.mlp = PhiMLP(cfg, dtype=dtype, device=device, mesh=mesh)
+        self.dtype = dtype
+        self.tp_group = mesh.model_group if tp_parts(cfg, mesh) > 1 else None
 
     def forward(self, x, attn_bias, cos, sin, cache=None, layer=0, slots=None):
         hs = self.input_layernorm(x)
-        return (x + self.self_attn(hs, attn_bias, cos, sin, cache, layer, slots)
-                + self.mlp(hs))
+        if self.tp_group is None:
+            return (x + self.self_attn(hs, attn_bias, cos, sin, cache, layer,
+                                       slots)
+                    + self.mlp(hs))
+        hs = copy_to_group(hs, self.tp_group)
+        out = reduce_from_group(self.self_attn(hs, attn_bias, cos, sin)
+                                + self.mlp(hs), self.tp_group)
+        dt = self.dtype
+        return (x + out + self.self_attn.dense.bias.to(dt)
+                + self.mlp.fc2.bias.to(dt))
 
 
 class PhiModel(nn.Module):
     """Embedding + decoder stack + final LayerNorm, on input embeddings."""
 
     def __init__(self, cfg: PhiConfig, dtype=torch.float32, device=None,
-                 use_flash: bool = False, remat: bool = False):
+                 use_flash: bool = False, remat: bool = False, mesh=None):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
         self.remat = remat
+        self.tp = tp_parts(cfg, mesh) > 1
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
                                          device=device, _weight=torch.empty(
                                              cfg.vocab_size, cfg.hidden_size,
                                              device=device))
         self.layers = nn.ModuleList(PhiDecoderLayer(cfg, dtype=dtype,
                                                     device=device,
-                                                    use_flash=use_flash)
+                                                    use_flash=use_flash,
+                                                    mesh=mesh)
                                     for _ in range(cfg.num_layers))
         self.final_layernorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps,
                                          device=device)
@@ -230,6 +288,8 @@ class PhiModel(nn.Module):
     def init_cache(self, batch: int, max_len: int,
                    dtype=torch.bfloat16) -> KVCache:
         """An empty cache of ``max_len`` slots on the model's device."""
+        if self.tp:
+            raise ValueError("the KV cache runs without tensor parallelism")
         return KVCache(self.cfg, batch, max_len, dtype,
                        self.embed_tokens.weight.device)
 

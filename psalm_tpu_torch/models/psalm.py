@@ -31,6 +31,12 @@ Counterpart of ``psalm_tpu/models/psalm.py`` for two paths:
     unless ``remat_pixel`` says otherwise, the pixel decoder's encoder
     layers (the tower is not checkpointed, as in JAX).
 
+With a ``mesh`` of model size m > 1 (``parallel/mesh.py``), Phi is
+tensor-parallel over the mesh's model group (``models/phi.py``) and so is
+``lm_head``: its weight is column-parallel (vocab_size / m rows here), the
+shards of the logits are gathered before the bias, which stays whole, as in
+JAX's rules. Load the slices of ``parallel.mesh.shard_state_dict``.
+
 Parameter names are the released checkpoint's torch keys, so
 ``load_state_dict`` takes a released-format state dict directly, or the
 output of ``psalm_tpu_torch.checkpoint.from_jax.jax_to_torch_state_dict``.
@@ -42,6 +48,7 @@ import math
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from psalm_tpu_torch.config import PSALMConfig
@@ -55,6 +62,7 @@ from psalm_tpu_torch.models.pixel_decoder import (MSDeformAttnLayer,
 from psalm_tpu_torch.models.projector import build_projector
 from psalm_tpu_torch.models.swin import SwinTransformer, WindowAttention
 from psalm_tpu_torch.ops.sampling import point_sample
+from psalm_tpu_torch.parallel.tensor_parallel import copy_to_group, gather_last
 
 PIXEL_MEAN = (123.675, 116.28, 103.53)
 PIXEL_STD = (58.395, 57.12, 57.375)
@@ -82,9 +90,9 @@ class PSALMBackbone(PhiModel):
     """Phi with the vision tower and projector beside it (``model.*``)."""
 
     def __init__(self, cfg: PSALMConfig, dtype=torch.float32, device=None,
-                 use_flash: bool = False, remat: bool = False):
+                 use_flash: bool = False, remat: bool = False, mesh=None):
         super().__init__(cfg.phi, dtype=dtype, device=device,
-                         use_flash=use_flash, remat=remat)
+                         use_flash=use_flash, remat=remat, mesh=mesh)
         self.vision_tower = SwinTransformer(cfg.swin, dtype=dtype, device=device)
         self.mm_projector = build_projector(cfg.projector, dtype=dtype,
                                             device=device)
@@ -94,12 +102,13 @@ class PSALM(nn.Module):
     """The whole model, built on ``device`` (the card unless the caller asks
     for another; ``"cuda"`` without a card raises, as torch does).
     ``use_flash`` sends Phi's full-sequence attention through kernel K5, as
-    ``use_flash=True`` does in JAX (``bench.py`` builds the eval model so)."""
+    ``use_flash=True`` does in JAX (``bench.py`` builds the eval model so).
+    ``mesh``: Phi and ``lm_head`` tensor-parallel over its model group."""
 
     def __init__(self, cfg: PSALMConfig, dtype=torch.float32, device="cuda",
                  use_flash: bool = False, remat: bool = False,
                  remat_pixel: Optional[bool] = None,
-                 train_backbone: bool = False):
+                 train_backbone: bool = False, mesh=None):
         super().__init__()
         self.cfg = cfg
         self.train_backbone = train_backbone
@@ -108,9 +117,18 @@ class PSALM(nn.Module):
         hd = c.mask_decoder.hidden_dim
         D = c.phi.hidden_size
         self.model = PSALMBackbone(cfg, dtype=dtype, device=device,
-                                   use_flash=use_flash, remat=remat)
-        self.lm_head = layers.Dense(D, c.phi.vocab_size, bias=c.phi.lm_head_bias,
-                                    dtype=dtype, device=device)
+                                   use_flash=use_flash, remat=remat, mesh=mesh)
+        self.mesh = mesh if self.model.tp else None
+        if self.mesh is None:
+            self.lm_head = layers.Dense(D, c.phi.vocab_size,
+                                        bias=c.phi.lm_head_bias, dtype=dtype,
+                                        device=device)
+        else:
+            self.lm_head = layers.Dense(D, c.phi.vocab_size // mesh.model,
+                                        bias=False, dtype=dtype, device=device)
+            if c.phi.lm_head_bias:
+                self.lm_head.bias = nn.Parameter(torch.empty(
+                    c.phi.vocab_size, device=device))
         self.seg_query = nn.Parameter(torch.empty(c.mask_decoder.num_queries, D,
                                                   device=device))
         self.pixel_decoder = MSDeformAttnPixelDecoder(
@@ -252,8 +270,19 @@ class PSALM(nn.Module):
                              region_embedding=region_embedding,
                              region_valid=region_valid)
         if compute_logits:
-            out["logits"] = self.lm_head(hidden)
+            out["logits"] = self.logits(hidden)
         return {"hidden": hidden, **out}
+
+    def logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        """``lm_head(hidden)``; under tensor parallelism the vocabulary
+        shards gathered in rank order, then the bias."""
+        if self.mesh is None:
+            return self.lm_head(hidden)
+        dt = self.dtype
+        head = self.lm_head
+        out = gather_last(F.linear(copy_to_group(hidden, self.mesh.model_group)
+                                   .to(dt), head.weight.to(dt)), self.mesh)
+        return out if head.bias is None else out + head.bias.to(dt)
 
 
 @torch.no_grad()

@@ -24,9 +24,18 @@ Targets are padded to N masks with a validity mask: invalid columns cost
 
 Random points come from ``uniform_fn(generator, shape)`` (default
 ``torch.rand`` on the generator's device); the tests inject the same draws
-on both sides, as JAX's ``uniform_fn`` hook lets them. ``num_masks`` is the
-single process's count (JAX averages it over data-parallel ranks; the port
-runs on one card).
+on both sides, as JAX's ``uniform_fn`` hook lets them.
+
+With a ``mesh`` (``parallel/mesh.py``), each data rank holds its rows of the
+global batch that JAX's step sees whole, and the criterion returns this
+rank's share of the global losses, so that the shares sum over the data
+group to the one-process losses of the concatenated batch (and their
+gradients to its gradient): ``num_masks`` is the global count of valid
+masks (``psalm_tpu/train/criterion.py:376-380``), the [SEG] and region
+losses are means over the global number of entries with the global
+``pos_weight``, the class-name loss divides by the global sum of its
+weights, and the points are the global draws' rows of this rank
+(``shard_draws``).
 
 One deliberate difference: JAX writes the matched class labels with
 ``.at[src].set`` over every target slot, padding included, so a padding slot
@@ -46,6 +55,7 @@ from scipy.optimize import linear_sum_assignment
 from psalm_tpu_torch.config import LossConfig
 from psalm_tpu_torch.ops.sampling import (UniformFn, default_uniform,
                                           point_sample)
+from psalm_tpu_torch.parallel.mesh import all_reduce, shard_draws
 
 
 # ---------------------------------------------------------------------------
@@ -154,11 +164,18 @@ class PSALMCriterion:
 
     def __init__(self, cfg: LossConfig, num_queries: int,
                  per_mask_uncertainty: bool = False,
-                 uniform_fn: UniformFn = default_uniform):
+                 uniform_fn: UniformFn = default_uniform, mesh=None):
         self.cfg = cfg
         self.num_queries = num_queries
         self.per_mask_uncertainty = per_mask_uncertainty
-        self.uniform_fn = uniform_fn
+        self.mesh = mesh
+        self.data = 1 if mesh is None else mesh.data
+        self.uniform_fn = (uniform_fn if mesh is None
+                           else shard_draws(uniform_fn, mesh))
+
+    def global_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the data group (``t`` without a mesh)."""
+        return t if self.mesh is None else all_reduce(t, self.mesh.data_group)
 
     def _uniform(self, generator, shape, device) -> torch.Tensor:
         return torch.as_tensor(self.uniform_fn(generator, shape),
@@ -251,7 +268,9 @@ class PSALMCriterion:
         B, Q = logits.shape
         tgt = torch.zeros(B, Q, device=logits.device).scatter_reduce(
             1, src_idx, valid.float(), reduce="amax")
-        return _bce_pos_weight(logits, tgt, (B * Q - num_masks) / num_masks)
+        n = B * Q * self.data
+        return _bce_pos_weight(logits, tgt,
+                               (n - num_masks) / num_masks) / self.data
 
     def loss_class_name_labels(self, outputs, targets, src_idx, valid):
         logits = outputs.get("pred_class_name_logits")
@@ -269,7 +288,7 @@ class PSALMCriterion:
         nll = -torch.gather(torch.log_softmax(logits, -1), 2,
                             tgt_classes[..., None])[..., 0]
         wt = weights[tgt_classes]
-        return torch.sum(nll * wt) / torch.sum(wt)
+        return torch.sum(nll * wt) / self.global_sum(torch.sum(wt))
 
     def loss_region_labels(self, outputs, src_idx, valid, num_masks):
         logits = outputs.get("pred_region_logits")
@@ -280,7 +299,9 @@ class PSALMCriterion:
         # target[b, j, src_idx[b, j]] = 1 for the valid matched pairs
         tgt = torch.zeros(B, R, Q, device=logits.device).scatter_reduce(
             2, src_idx[:, :R, None], valid[:, :R, None].float(), reduce="amax")
-        return _bce_pos_weight(logits, tgt, (B * R * Q - num_masks) / num_masks)
+        n = B * R * Q * self.data
+        return _bce_pos_weight(logits, tgt,
+                               (n - num_masks) / num_masks) / self.data
 
     # -- full forward --------------------------------------------------------
 
@@ -293,7 +314,8 @@ class PSALMCriterion:
         layer's matching points, then each layer's mask-loss points."""
         c = self.cfg
         dev = outputs["pred_masks"].device
-        num_masks = targets["valid"].sum().float().clamp(min=1.0)
+        num_masks = self.global_sum(
+            targets["valid"].sum().float()).clamp(min=1.0)
         layers = [outputs] + list(outputs.get("aux_outputs", []))
         zero = torch.zeros((), device=dev)
         totals = {k: zero for k in ("loss_mask", "loss_dice", "loss_SEG_class",

@@ -17,8 +17,10 @@ on threads); ``--profile_steps a,b`` traces steps a..b with
 ``torch.profiler`` into a Chrome trace in ``output_dir``.
 
 ``main`` is the command line (``python -m psalm_tpu_torch.train.train
---output_dir ... --panoptic_json_path ...``): the six dataset classes from
-the paths with JAX's ``--data_ratio`` rule, one sampler shard, the model
+--output_dir ... --panoptic_json_path ...``, or under ``torchrun
+--nproc_per_node=N -m psalm_tpu_torch.train.train ...``): the six dataset
+classes from the paths with JAX's ``--data_ratio`` rule, a sampler shard per
+data rank, the model
 from ``--model_name_or_path`` (the port's released-format checkpoint
 directory, ``models/builder.py``; random weights from ``--seed`` without
 one) in f32 parameters with the compute type of ``--bf16``, on
@@ -33,8 +35,22 @@ generator), and ``--lora_rank`` > 0 puts LoRA adapters on Phi's linears
 and trains ``train/lora.py``'s ``psalm_finetune_mask`` (the adapters and
 every module but the tower and Phi's base).
 
-Not ported (``ROADMAP.md``): data parallelism and ZeRO sharding, and
-orbax checkpoints (``torch.save`` files instead).
+Distribution (``psalm_tpu/train/train.py``'s ``mesh``): ``Trainer(mesh=)``
+takes a ``parallel.mesh.Mesh``. Each data rank steps on its rows of the
+global batch, the criterion and ``llm_ce_loss`` return its share of the
+global losses (global mask, entry and token counts, the global draws' rows),
+``ZeroOptimizer`` sums the gradients over the data group and keeps Adam's
+moments sharded over it, and with model > 1 Phi and ``lm_head`` are
+tensor-parallel (``PSALM(..., mesh=mesh)``). The logged losses are the
+global ones. A checkpoint is ``checkpoint.pt`` (rank 0: the whole
+parameters, gathered over the model group, the step and the mesh's sizes)
+and ``optimizer-{d}-{m}.pt`` (each rank's moment slices); one process
+writes the same layout as a 1 x 1 mesh, and a resume re-slices the moments
+for a mesh of any size, one process included. ``main`` under torchrun (``WORLD_SIZE``
+> 1) builds a data-parallel mesh over every rank, shards the sampler by
+data rank, and lets rank 0 alone write the log, the TensorBoard scalars and
+the traces. The port writes ``torch.save`` files, not orbax
+(``tools/orbax_to_torch.py`` converts JAX's).
 
 Two differences from JAX's trainer, both on the mm_conv loss: the port runs
 it with the tower frozen unless ``--train_backbone`` (JAX calls the model
@@ -56,6 +72,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from psalm_tpu_torch.config import PSALMConfig, SegTask, config_from_json
 from psalm_tpu_torch.data.constants import IGNORE_INDEX
@@ -66,10 +83,13 @@ from psalm_tpu_torch.data.datasets import (DataConfig, InstanceDataset,
                                            collate)
 from psalm_tpu_torch.models.psalm import PSALM, init_weights_
 from psalm_tpu_torch.ops.sampling import UniformFn, default_uniform
+from psalm_tpu_torch.parallel.mesh import (Mesh, all_reduce, shard_draws,
+                                           shard_state_dict, shard_tensor,
+                                           unshard)
 from psalm_tpu_torch.train.criterion import PSALMCriterion
 from psalm_tpu_torch.train.lora import psalm_finetune_mask
-from psalm_tpu_torch.train.train_step import (TrainState, make_optimizer,
-                                              train_step)
+from psalm_tpu_torch.train.train_step import (TrainState, ZeroOptimizer,
+                                              make_optimizer, train_step)
 
 LOSS_KEYS = ["loss_mask", "loss_dice", "loss_SEG_class",
              "loss_class_name_class", "loss_region_class", "loss_llm"]
@@ -197,14 +217,19 @@ class LossHistory:
         return out
 
 
-def llm_ce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Shifted CE ignoring IGNORE_INDEX (llava_phi.py:1063-1073)."""
+def llm_ce_loss(logits: torch.Tensor, labels: torch.Tensor,
+                mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """Shifted CE ignoring IGNORE_INDEX (llava_phi.py:1063-1073); with a
+    mesh, this data rank's share: divided by the global token count."""
     shift_logits = logits[:, :-1].float()
     shift_labels = labels[:, 1:].long()
     valid = shift_labels != IGNORE_INDEX
     nll = -torch.gather(torch.log_softmax(shift_logits, -1), 2,
                         shift_labels.clamp(min=0)[..., None])[..., 0]
-    return torch.sum(nll * valid) / valid.sum().clamp(min=1)
+    count = valid.sum()
+    if mesh is not None:
+        count = all_reduce(count, mesh.data_group)
+    return torch.sum(nll * valid) / count.clamp(min=1)
 
 
 def build_train_config(args, base: Optional[PSALMConfig] = None
@@ -287,36 +312,63 @@ class Trainer:
     weights drawn from ``args.seed`` when none is given) on ``device``.
     ``uniform_fn`` replaces the criterion's point draws (the tests inject
     JAX's). The optimizer takes ``trainable_mask``'s parameters; the others
-    are frozen (``requires_grad_(False)``) and get no optimizer state."""
+    are frozen (``requires_grad_(False)``) and get no optimizer state.
+
+    ``mesh``: data (and tensor) parallelism on ``mesh.device`` (see the
+    module docstring); every rank builds the same random weights, and with
+    model > 1 keeps its slices. A given model must then be built with
+    ``PSALM(..., mesh=mesh)``."""
 
     def __init__(self, args, cfg: Optional[PSALMConfig] = None,
                  model: Optional[PSALM] = None, device="cuda",
-                 uniform_fn: UniformFn = default_uniform):
+                 uniform_fn: UniformFn = default_uniform,
+                 mesh: Optional[Mesh] = None):
         self.args = args
         self.cfg = cfg if cfg is not None else build_train_config(args)
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = torch.device(device) if mesh is None else mesh.device
+        tp = mesh is not None and mesh.model > 1
         if model is None:
-            dtype = torch.bfloat16 if args.bf16 else torch.float32
-            model = PSALM(self.cfg, dtype=dtype, device=self.device,
-                          remat=args.gradient_checkpointing,
-                          remat_pixel=remat_pixel_policy(args, self.cfg),
-                          train_backbone=getattr(args, "train_backbone",
-                                                 False))
-            init_weights_(model, torch.Generator(device=self.device)
-                          .manual_seed(args.seed))
+            kw = dict(dtype=torch.bfloat16 if args.bf16 else torch.float32,
+                      device=self.device, remat=args.gradient_checkpointing,
+                      remat_pixel=remat_pixel_policy(args, self.cfg),
+                      train_backbone=getattr(args, "train_backbone", False))
+            model = init_weights_(PSALM(self.cfg, **kw),
+                                  torch.Generator(device=self.device)
+                                  .manual_seed(args.seed))
+            if tp:
+                full = model.state_dict()
+                model = PSALM(self.cfg, mesh=mesh, **kw)
+                model.load_state_dict(shard_state_dict(full, mesh))
+                del full
+        elif tp and model.mesh is None:
+            raise ValueError("with model > 1 the Trainer takes a model built "
+                             "with PSALM(..., mesh=mesh) holding "
+                             "shard_state_dict's slices")
         self.model = model.train()
+        if mesh is not None:  # the drop path's draws of the global batch
+            tower = self.model.model.vision_tower
+            tower.uniform_fn = shard_draws(tower.uniform_fn, mesh)
         self.criterion = PSALMCriterion(self.cfg.loss,
                                         self.cfg.mask_decoder.num_queries,
-                                        uniform_fn=uniform_fn)
+                                        uniform_fn=uniform_fn, mesh=mesh)
         mask = trainable_mask(self.model)
         self.trainable = []
         for n, p in self.model.named_parameters():
             p.requires_grad_(mask[n])
             if mask[n]:
                 self.trainable.append((n, p))
-        self.optimizer = make_optimizer(
-            [p for _, p in self.trainable], args.learning_rate,
-            args.num_train_steps, args.warmup_ratio, args.weight_decay)
+        if mesh is None:
+            self.optimizer = make_optimizer(
+                [p for _, p in self.trainable], args.learning_rate,
+                args.num_train_steps, args.warmup_ratio, args.weight_decay,
+                names=[n for n, _ in self.trainable])
+        else:
+            self.optimizer = ZeroOptimizer(
+                self.trainable, mesh, args.learning_rate,
+                args.num_train_steps, args.warmup_ratio, args.weight_decay)
+        # the one process, or the rank that writes logs and traces
+        self.rank_zero = mesh is None or mesh.rank == 0
         self.state = TrainState(0, self.model, self.optimizer)
         self.generator = torch.Generator(device=self.device).manual_seed(
             args.seed)
@@ -346,7 +398,7 @@ class Trainer:
         def loss_fn(batch, generator):
             out = self.model(batch, use_class_names=False, train=True,
                              compute_logits=True)
-            loss = llm_ce_loss(out["logits"], batch["labels"])
+            loss = llm_ce_loss(out["logits"], batch["labels"], self.mesh)
             return loss, {"loss_llm": loss.detach()}
         return loss_fn
 
@@ -372,31 +424,53 @@ class Trainer:
                 for k, v in batch_np.items() if k not in _HOST_KEYS}
 
     def step(self, batch_np: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        """One training step on a collated batch; returns its metrics."""
+        """One training step on a collated batch; returns its metrics (with
+        a mesh, the global ones: the ranks' shares summed)."""
         dataset_type = batch_np["dataset_type"]
         num_k = int(np.asarray(batch_np.get("num_class_names", [0]))[0])
+        if self.mesh is not None:  # one class-name count on every rank
+            num_k = int(all_reduce(torch.tensor(num_k, device=self.device),
+                                   self.mesh.data_group, dist.ReduceOp.MAX))
         loss_fn = self._step_for(dataset_type, num_k)
-        return train_step(self.state, loss_fn, self.stage(batch_np),
-                          self.generator)
+        metrics = train_step(self.state, loss_fn, self.stage(batch_np),
+                             self.generator)
+        if self.mesh is None:
+            return metrics
+        keys = [k for k in metrics if k != "grad_norm"]
+        total = all_reduce(torch.stack([metrics[k].float() for k in keys]),
+                           self.mesh.data_group)
+        return {**dict(zip(keys, total.unbind())),
+                "grad_norm": metrics["grad_norm"]}
 
     # -- checkpointing -------------------------------------------------------
 
     def save(self, step: int) -> str:
-        """``output_dir/checkpoint-{step}/checkpoint.pt``: the trainable
-        parameters (only the projector with --tune_mm_mlp_adapter), the
-        optimizer and the step; then keeps the newest ``save_total_limit``."""
+        """``output_dir/checkpoint-{step}/``: ``checkpoint.pt`` (the
+        trainable parameters, only the projector with
+        --tune_mm_mlp_adapter, whole: gathered over the model group; the
+        step; the mesh's sizes, 1 x 1 without one) and this rank's moment
+        slices in ``optimizer-{data_rank}-{model_rank}.pt``; then keeps the
+        newest ``save_total_limit``. With a mesh every rank calls it."""
         path = os.path.join(self.args.output_dir, f"checkpoint-{step}")
         os.makedirs(path, exist_ok=True)
-        if getattr(self.args, "tune_mm_mlp_adapter", False):
-            params = {n: p.detach() for n, p in self.trainable
-                      if n.startswith("model.mm_projector.")}
-            payload = {"params": params, "step": step}
-        else:
-            payload = {"params": {n: p.detach() for n, p in self.trainable},
-                       "optimizer": self.optimizer.state_dict(), "step": step}
-        torch.save(payload, os.path.join(path, "checkpoint.pt"))
-        for d in _checkpoints(self.args.output_dir)[:-self.args.save_total_limit]:
-            shutil.rmtree(os.path.join(self.args.output_dir, d))
+        adapter = getattr(self.args, "tune_mm_mlp_adapter", False)
+        m, opt = self.mesh, self.optimizer
+        params = {n: p.detach() if m is None else unshard(p.detach(), n, m)
+                  for n, p in self.trainable
+                  if not adapter or n.startswith("model.mm_projector.")}
+        if not adapter:
+            torch.save(opt.state_dict(), os.path.join(
+                path, f"optimizer-{opt.data_rank}-{opt.model_rank}.pt"))
+        if self.rank_zero:
+            torch.save({"params": params, "step": step,
+                        "world": {"data": opt.data, "model": opt.model}},
+                       os.path.join(path, "checkpoint.pt"))
+        if m is not None:
+            dist.barrier()
+        if self.rank_zero:
+            for d in _checkpoints(self.args.output_dir)[
+                    :-self.args.save_total_limit]:
+                shutil.rmtree(os.path.join(self.args.output_dir, d))
         return path
 
     def latest_checkpoint(self) -> Optional[str]:
@@ -404,21 +478,33 @@ class Trainer:
         return os.path.join(self.args.output_dir, ckpts[-1]) if ckpts else None
 
     def try_resume(self) -> int:
-        """Loads the newest checkpoint, if any (train.py:459-462); returns
-        the step to go on from."""
+        """Loads the newest checkpoint, if any (train.py:459-462), saved on a
+        mesh of any size or by one process; returns the step to go on
+        from."""
         path = self.latest_checkpoint()
         if path is None:
             return self.state.step
         payload = torch.load(os.path.join(path, "checkpoint.pt"),
                              map_location=self.device)
+        m, opt = self.mesh, self.optimizer
         params = dict(self.trainable)
         with torch.no_grad():
             for n, t in payload["params"].items():
-                params[n].copy_(t)
-        if "optimizer" in payload:
-            self.optimizer.load_state_dict(payload["optimizer"])
+                params[n].copy_(t if m is None else shard_tensor(t, n, m))
+        opt.refresh()
+        if not getattr(self.args, "tune_mm_mlp_adapter", False):
+            world = payload["world"]
+            if (world["data"], world["model"]) == (opt.data, opt.model):
+                files = [f"optimizer-{opt.data_rank}-{opt.model_rank}.pt"]
+            else:
+                files = sorted(f for f in os.listdir(path)
+                               if f.startswith("optimizer-"))
+            opt.load_state_dict(
+                [torch.load(os.path.join(path, f), map_location="cpu")
+                 for f in files])
         self.state.step = int(payload["step"])
-        print(f"resumed from {path} at step {self.state.step}")
+        if self.rank_zero:
+            print(f"resumed from {path} at step {self.state.step}")
         return self.state.step
 
     # -- main loop -----------------------------------------------------------
@@ -440,7 +526,8 @@ class Trainer:
                                     - start_step)
         tb_writer = None
         try:
-            if getattr(args, "report_to", "none") == "tensorboard":
+            if getattr(args, "report_to", "none") == "tensorboard" and \
+                    self.rank_zero:
                 tb_writer = summary_writer(os.path.join(args.output_dir, "tb"))
             self._train_loop(loader, sampler, tb_writer, start_step)
         finally:
@@ -462,13 +549,14 @@ class Trainer:
             for step in range(start_step, args.num_train_steps):
                 batch_np = (next(loader) if loader is not None
                             else collate(sampler.next_batch()))
-                if profile_range and step == profile_range[0]:
+                if profile_range and step == profile_range[0] and \
+                        self.rank_zero:
                     profiler = self._start_profiler()
                 metrics = self.step(batch_np)
                 if profiler is not None and step == profile_range[1]:
                     self._stop_profiler(profiler, profile_range)
                     profiler = None
-                if step % args.logging_steps == 0:
+                if step % args.logging_steps == 0 and self.rank_zero:
                     logged = self.history.update(
                         {k: float(v) for k, v in metrics.items()})
                     logged.update(step=step,
@@ -587,19 +675,35 @@ def main(argv=None, tokenizer=None) -> TrainState:
                       num_seg_queries=cfg.mask_decoder.num_queries,
                       pad_len=args.model_max_length)
     datasets, ratios = build_datasets(args, tokenizer, dcfg)
-    sampler = UnifiedTaskSampler(datasets, args.per_device_train_batch_size,
-                                 ratios, seed=args.seed)
-    model = None
-    if args.model_name_or_path:
-        from psalm_tpu_torch.models.builder import load_pretrained_model
-        _, model, _ = load_pretrained_model(
-            args.model_name_or_path, cfg=cfg,
-            dtype=torch.bfloat16 if args.bf16 else torch.float32,
-            param_dtype=torch.float32, device=args.device,
-            lora_seed=args.seed, remat=args.gradient_checkpointing,
-            remat_pixel=remat_pixel_policy(args, cfg),
-            train_backbone=args.train_backbone)
-    return Trainer(args, cfg, model=model, device=args.device).train(sampler)
+    mesh, device, shard = None, args.device, (0, 1)
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        # torchrun: data parallelism over every rank (JAX's
+        # process_count() > 1 branch, psalm_tpu/train/train.py:453-460)
+        from psalm_tpu_torch.parallel.mesh import (host_shard_info,
+                                                   init_distributed,
+                                                   make_mesh)
+        init_distributed(args.device)
+        mesh = make_mesh(data=-1, model=1, device=args.device)
+        device, shard = mesh.device, host_shard_info(mesh)
+    try:
+        sampler = UnifiedTaskSampler(
+            datasets, args.per_device_train_batch_size, ratios,
+            seed=args.seed, shard_index=shard[0], num_shards=shard[1])
+        model = None
+        if args.model_name_or_path:
+            from psalm_tpu_torch.models.builder import load_pretrained_model
+            _, model, _ = load_pretrained_model(
+                args.model_name_or_path, cfg=cfg,
+                dtype=torch.bfloat16 if args.bf16 else torch.float32,
+                param_dtype=torch.float32, device=device,
+                lora_seed=args.seed, remat=args.gradient_checkpointing,
+                remat_pixel=remat_pixel_policy(args, cfg),
+                train_backbone=args.train_backbone)
+        return Trainer(args, cfg, model=model, device=device,
+                       mesh=mesh).train(sampler)
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -90,10 +90,14 @@ def test_phi_flash_matches_jax_flash_on_valid_rows(setup):  # noqa: F811
     the port's own einsum branch."""
     cfg, variables, port = setup
     embeds, mask = _phi_inputs(cfg)
+    # under jit: run eagerly, the interpreter's callbacks dispatch JAX ops
+    # while this thread dispatches the next layer's, and the two can
+    # deadlock on the CPU client
     with pltpu.force_tpu_interpret_mode():
-        want, _ = JPhiModel(cfg.phi, use_flash=True).apply(
-            {"params": variables["params"]["phi"]["model"]},
-            jnp.asarray(embeds), jnp.asarray(mask))
+        want, _ = jax.jit(lambda p, e, m: JPhiModel(
+            cfg.phi, use_flash=True).apply({"params": p}, e, m))(
+            variables["params"]["phi"]["model"], jnp.asarray(embeds),
+            jnp.asarray(mask))
     flash = PhiModel(cfg.phi, use_flash=True)
     flash.load_state_dict(port.model.state_dict(), strict=False)
     args = (torch.from_numpy(embeds), torch.from_numpy(mask))

@@ -33,7 +33,9 @@ def test_no_jax_behind_the_package():
               "serve.web_server", "serve.cli", "serve.register_worker",
               "serve.moderation", "serve.test_message",
               "checkpoint.weight_tools", "checkpoint.from_jax",
-              "data.prefetch", "train.lora", "bench"):
+              "data.prefetch", "train.lora", "bench", "parallel.mesh",
+              "parallel.tensor_parallel", "parallel.launch",
+              "parallel.dryrun", "checkpoint.mask2former"):
         assert f"psalm_tpu_torch.{m}" in mods
     # the bench imports transformers only inside its baseline function
     code = ("import importlib, sys\n"

@@ -290,8 +290,8 @@ def test_main_flags_reach_the_config_unlike_jax_main(tmp_path, monkeypatch):
     class Capture:
         """Stands in for the Trainer: keeps what main hands it."""
 
-        def __init__(self, args, cfg, model=None, device="cuda"):
-            seen.update(cfg=cfg, model=model, device=device)
+        def __init__(self, args, cfg, model=None, device="cuda", mesh=None):
+            seen.update(cfg=cfg, model=model, device=device, mesh=mesh)
 
         def train(self, sampler):
             seen["sampler"] = sampler
@@ -305,6 +305,8 @@ def test_main_flags_reach_the_config_unlike_jax_main(tmp_path, monkeypatch):
     assert seen["cfg"].compute_dtype == "float32"
     assert seen["model"] is None and seen["device"] == "cpu"
     assert len(seen["sampler"].datasets) == 1
+    # without torchrun's WORLD_SIZE: one process, no mesh, one shard
+    assert seen["mesh"] is None and seen["sampler"].num_shards == 1
 
     # a checkpoint directory: its config under the flags, bf16 compute on
     # f32 parameters
