@@ -238,6 +238,37 @@ Phases, each of which must pass:
                for bit; dryrun_multichip(1, "cuda"); an EvalRunner(mesh=)
                image on phase 5's model and batch whose maps equal phase
                5's (6 K1, 24 K3). The group is destroyed at the end.
+ 20. train matchers - Trainer.step at the full published width (phase
+               10's recipe and sample, learning rate 0 so that every step
+               starts from the same weights, fixed point draws) under
+               set_assign_impl "scipy", "lap" and "auction". The first
+               step's cost matrices (the final layer and the nine aux
+               layers at batch 1: [10, 100, 16]) go to K6 (csrc/lap.cu)
+               and K7 (csrc/auction.cu), held against their plain
+               versions on the card integer for integer, with equal step
+               counts, there and at [4, 100, 100] (the full square),
+               [3, 100, 16] with n_valid 0, 1 and 16, integer costs with
+               ties and NaN / +-inf entries; K6's total cost equal to
+               scipy's optimum (float64) to 1e-6 relative. Each matcher's
+               first step against scipy's: the assignment equal wherever
+               scipy's optimum is decided by more than the matcher's
+               margin (K6: 1e-6 of the optimum; K7: N eps) and its total
+               cost within that margin, the losses equal to 1e-6 where the
+               assignment is equal; torch.cuda.set_sync_debug_mode("error")
+               around hungarian_assign for "lap" and "auction"; the
+               criterion's synchronizing calls counted ("warn"); 3 timed
+               steps after the first, 12 K1, 6 K2, 24 K3 and 1 K6 or K7 a
+               step; K6's and K7's device ms, their plain versions' and
+               scipy's host route (copies included) at the step's cost.
+ 21. window guard - EvalRunner's window-clamp guard on PSALMConfig() in
+               "window" at radius 8 (bf16, eval (5)'s model and geometry):
+               the sampling_offsets bias scaled by 3 (offsets to 12 px: the
+               radius rises to 13), 5 (20 px: the runner falls back to
+               "deformable") and 1 (the init's 4 px: radius 8 stays);
+               window_stats equal to offset_clamp_report's, the maps equal
+               to the exact sampler's on the same weights, 12 K1 and 48 K3
+               in the first image (the check's Swin and encoder, then the
+               image), the check's ms beside one infer's.
 
 Each path zeroes the launch counters just before its timed run and reads
 them just after. f32 comparisons run with TF32 off. On the line before the
@@ -327,15 +358,24 @@ SOURCES = {
     # of _xla_reference, by recompute
     "K3 backward": ("psalm_tpu_torch/csrc/swin_attention_bwd.cu",
                     "psalm_tpu/ops/swin_attention_pallas.py:137"),
+    # the on-device matchers: no Pallas kernel, JAX's lax loops (lap_assign's
+    # counted fori_loops, auction_assign's while_loop)
+    "K6": ("psalm_tpu_torch/csrc/lap.cu", "psalm_tpu/train/lap.py:118"),
+    "K7": ("psalm_tpu_torch/csrc/auction.cu", "psalm_tpu/train/auction.py:24"),
 }
+# what K6 and K7 replace, where it is not a pl.pallas_call
+REPLACES_KIND = {"K6": "lax.fori_loop, not a pl.pallas_call",
+                 "K7": "lax.while_loop, not a pl.pallas_call"}
 
 
 def launch_counts():
     """Every kernel's launches since the counters were last zeroed."""
     from psalm_tpu_torch.ops import (flash_attention, int4_matvec, msdeform,
                                      swin_attention)
+    from psalm_tpu_torch.train import auction, lap
     fa = flash_attention
     return {"K1": msdeform.LAUNCHES, "K2": msdeform.BWD_LAUNCHES,
+            "K6": lap.LAUNCHES, "K7": auction.LAUNCHES,
             "K3": swin_attention.LAUNCHES, "K4": int4_matvec.LAUNCHES,
             "K3 backward": swin_attention.BWD_LAUNCHES,
             "K5 causal": fa.CAUSAL_LAUNCHES,
@@ -355,6 +395,8 @@ def expected(**per_kernel):
 def zero_counts():
     from psalm_tpu_torch.ops import (flash_attention, int4_matvec, msdeform,
                                      swin_attention)
+    from psalm_tpu_torch.train import auction, lap
+    lap.LAUNCHES = auction.LAUNCHES = 0
     msdeform.LAUNCHES = msdeform.BWD_LAUNCHES = 0
     swin_attention.LAUNCHES = swin_attention.BWD_LAUNCHES = 0
     int4_matvec.LAUNCHES = 0
@@ -472,14 +514,15 @@ def dtype_name(dtype):
     return str(dtype).split(".")[-1]
 
 
-def record(records, kernel, name, err, tol, fn, plain_fn, library_fn, bnd):
+def record(records, kernel, name, err, tol, fn, plain_fn, library_fn, bnd,
+           plain_iters=10, plain_warmup=3):
     """Time the kernel's call ``fn``, its plain version and the library
     call (device time), log and keep the check."""
     if not err <= tol:
         fail(f"{name}: max abs err {err} > {tol} ({err / tol:.4g}x)")
     ms = device_ms(fn)
     call_ms = cuda_time_ms(fn)
-    plain_ms = device_ms(plain_fn, iters=10)
+    plain_ms = device_ms(plain_fn, iters=plain_iters, warmup=plain_warmup)
     library_ms = device_ms(library_fn) if library_fn is not None else None
     log(f"  {name}: max_abs_err {err:.3e} (tol {tol:g}), kernel {ms:.4f} ms "
         f"(call {call_ms:.4f} ms), plain {plain_ms:.4f} ms, library "
@@ -3681,6 +3724,414 @@ def train_dist_slice(torch, np, card, timings):
     return {"train dist": counts, "train dist/eval": eval_counts}
 
 
+# -- phase 20: the on-device matchers (K6, K7) in the training step ----------
+MATCHERS = ("scipy", "lap", "auction")
+MATCHER_TIMED = 3
+MATCHER_KERNEL = {"lap": "K6", "auction": "K7"}
+
+
+def matcher_cases(torch, np, step_cost=None):
+    """K6's and K7's inputs on the card: the training step's own cost (phase
+    10's [L B, Q, N]) where main gives it, else a random stand-in of its
+    shape; the full square; padding with n_valid 0 and 1; integer costs
+    with ties; NaN and +-inf entries. (name, cost, n_valid) each."""
+    rng = np.random.default_rng(20)
+    f32 = np.float32
+    cases = []
+
+    def put(name, cost, n_valid):
+        cost = np.asarray(cost, f32)
+        for b, n in enumerate(n_valid):
+            if name.startswith("padding"):
+                cost[b, :, n:] = 1e8  # the criterion's padding columns
+        cases.append((name, torch.from_numpy(cost).cuda(),
+                      torch.tensor(n_valid, device="cuda")))
+
+    if step_cost is not None:
+        cases.append(("the training step's cost " + str(list(
+            step_cost[0].shape)), *step_cost))
+    else:
+        put("random [10, 100, 16]", rng.standard_normal((10, 100, 16)) * 2,
+            [16] * 10)
+    put("full square [4, 100, 100]", rng.standard_normal((4, 100, 100)) * 3,
+        [100] * 4)
+    put("padding, n_valid 0, 1, 16 [3, 100, 16]",
+        rng.standard_normal((3, 100, 16)), [0, 1, 16])
+    put("integer ties [4, 100, 16]", rng.integers(0, 4, (4, 100, 16)),
+        [16, 16, 9, 1])
+    odd = rng.standard_normal((2, 100, 16)).astype(f32)
+    for value in (np.nan, np.inf, -np.inf):
+        odd.reshape(-1)[rng.choice(odd.size, 40, replace=False)] = value
+    put("NaN and +-inf [2, 100, 16]", odd, [16, 12])
+    return cases
+
+
+def matcher_bound(name, cost, n_valid, steps):
+    """(ms, by): each cost read once, n_valid read, src (int64) and valid
+    written; operations: K6's relaxations (4 f32 operations a column a
+    pop), K7's bids (3 a column a valid person a round: every valid
+    person counted as bidding)."""
+    B, Q, N = cost.shape
+    nbytes = 4 * B * Q * N + 4 * B + 9 * B * N
+    if name == "K6":
+        flops = 4 * Q * int(steps.sum())
+    else:
+        flops = 3 * Q * int((steps.long() * n_valid.long().clamp(max=N)).sum())
+    return bound(nbytes, flops, "float32")
+
+
+def _check_matcher(torch, np, kernel, fn, plain, records, step_cost):
+    from scipy.optimize import linear_sum_assignment
+    timed = []
+    for name, cost, n_valid in matcher_cases(torch, np, step_cost):
+        B = cost.shape[0]
+        steps, plain_steps = (torch.zeros(B, dtype=torch.int32, device="cuda")
+                              for _ in range(2))
+        got = fn(cost, n_valid, steps=steps)
+        want = plain(cost, n_valid, steps=plain_steps)
+        torch.cuda.synchronize()
+        err = (got[0] - want[0]).abs().max().item() if got[0].numel() else 0
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+                and torch.equal(steps, plain_steps)):
+            bad = (got[0] != want[0]).any(1).nonzero().flatten().tolist()
+            fail(f"{kernel} {name}: the kernel's assignment differs from the "
+                 f"plain version's in matrices {bad} (max |src diff| {err}); "
+                 f"steps {steps.tolist()} vs {plain_steps.tolist()}")
+        gap = 0.0
+        if kernel == "K6":  # the exact optimum, scipy's, in float64
+            c = np.nan_to_num(cost.double().cpu().numpy(), nan=1e8,
+                              posinf=1e8, neginf=-1e8)
+            src = got[0].cpu().numpy()
+            for b, n in enumerate(n_valid.tolist()):
+                if n <= 0:
+                    continue
+                rows, cols = linear_sum_assignment(c[b, :, :n])
+                opt = c[b][rows, cols].sum()
+                ours = c[b][src[b, :n], np.arange(n)].sum()
+                gap = max(gap, abs(ours - opt) / max(abs(opt), 1.0))
+            if not gap <= 1e-6:
+                fail(f"K6 {name}: total cost {gap:.3e} from scipy's optimum "
+                     "(relative; limit 1e-6)")
+        log(f"  {kernel} {name}: equal to the plain version, sequential "
+            f"steps a matrix {steps.tolist()}"
+            + (f", total cost within {gap:.1e} of scipy's optimum"
+               if kernel == "K6" else ""))
+        if name.startswith(("the training step", "random", "full square")):
+            timed.append((name, cost, n_valid, steps))
+    for name, cost, n_valid, steps in timed:
+        bnd = matcher_bound(kernel, cost, n_valid, steps)
+        # the plain versions sync on the host every pop or round: 3 calls
+        record(records, kernel, f"{kernel} {name}", 0.0, 0.0,
+               lambda: fn(cost, n_valid), lambda: plain(cost, n_valid), None,
+               bnd, plain_iters=3, plain_warmup=1)
+        records[-1]["sequential_steps"] = int(steps.max())
+        records[-1]["limit"] = "equal integers"
+
+
+def check_k6(torch, lap, records, step_cost=None):
+    """K6 (csrc/lap.cu) against lap_assign_plain on the card."""
+    import numpy as np
+    _check_matcher(torch, np, "K6", lap.lap_assign, lap.lap_assign_plain,
+                   records, step_cost)
+
+
+def check_k7(torch, auction, records, step_cost=None):
+    """K7 (csrc/auction.cu) against auction_assign_plain on the card."""
+    import numpy as np
+    _check_matcher(torch, np, "K7", auction.auction_assign,
+                   auction.auction_assign_plain, records, step_cost)
+
+
+def _decided_pairs(np, cost, src, n, margin):
+    """Per matched target of one matrix: does forbidding its pair raise
+    scipy's optimum by more than ``margin``?"""
+    from scipy.optimize import linear_sum_assignment
+    c = cost[:, :n]
+    best = c[src[:n], np.arange(n)].sum()
+    out = []
+    for j in range(n):
+        alt = c.copy()
+        alt[src[j], j] = 1e18
+        r, cols = linear_sum_assignment(alt)
+        out.append(alt[r, cols].sum() > best + margin)
+    return np.asarray(out, bool)
+
+
+def matcher_slice(torch, np, card, records):
+    """Phase 20: the training step at the full published width (phase 10's
+    recipe and sample, the learning rate 0 so that every step starts from
+    the same weights, fixed point draws) under each matcher. Returns each
+    on-device matcher's launches in its timed steps."""
+    import warnings
+    from psalm_tpu_torch.data.datasets import (SyntheticPanopticDataset,
+                                               UnifiedTaskSampler, collate)
+    from psalm_tpu_torch.train import auction, criterion, lap
+    from psalm_tpu_torch.train.train import Trainer, build_train_config
+    args = train_args(learning_rate=0.0)
+    cfg = build_train_config(args)
+    K = cfg.num_classes + 1
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer = Trainer(args, cfg, device="cuda", uniform_fn=FixedDraws(np, torch))
+    ds = SyntheticPanopticDataset(cfg.image_size, cfg.mask_decoder.num_queries,
+                                  K, num_samples=4, num_masks=16)
+    sampler = UnifiedTaskSampler([ds], batch_size=1)
+    batch = collate(sampler.next_batch())
+    real_assign = criterion.hungarian_assign
+    seen = {}  # matcher -> (cost, n_valid, src, valid) of its first step
+
+    def recorded(cost, n_valid):
+        impl = criterion._assign_impl()
+        mode = torch.cuda.get_sync_debug_mode()
+        if impl != "scipy":  # no device-to-host copy, no sync inside
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            src, valid = real_assign(cost, n_valid)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        seen.setdefault(impl, (cost.detach().clone(), n_valid.clone(),
+                               src.clone(), valid.clone()))
+        return src, valid
+
+    class Counted:  # the criterion's synchronizing calls, by sync debug mode
+        # ("warn"), in the port's files: FixedDraws' host-to-device copies
+        # are this harness's
+        def __init__(self, crit):
+            self.crit, self.syncs, self.sites = crit, 0, {}
+
+        def __getattr__(self, name):
+            return getattr(self.crit, name)
+
+        def __call__(self, *a, **kw):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    return self.crit(*a, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                    for w in caught:  # the port's own (not the draws')
+                        if ("called a synchronizing" in str(w.message)
+                                and "psalm_tpu_torch" in w.filename):
+                            self.syncs += 1
+                            site = (f"{os.path.basename(w.filename)}:"
+                                    f"{w.lineno}")
+                            self.sites[site] = self.sites.get(site, 0) + 1
+
+    criterion.hungarian_assign = recorded
+    counted = trainer.criterion = Counted(trainer.criterion)
+    paths, first, ms, syncs = {}, {}, {}, {}
+    try:
+        for impl in MATCHERS:
+            criterion.set_assign_impl(impl)
+            counted.syncs, counted.sites = 0, {}
+            first[impl] = {k: float(v) for k, v in trainer.step(batch).items()}
+            syncs[impl] = counted.syncs
+            log(f"  {impl}: the criterion's synchronizing calls by site "
+                f"{sorted(counted.sites.items(), key=lambda kv: -kv[1])}")
+            if impl == "scipy":  # the kernels at the step's own cost
+                step_cost = seen["scipy"][:2]
+                log(f"  the step's cost matrices: {list(step_cost[0].shape)} "
+                    f"(the final layer and {len(step_cost[0]) - 1} aux "
+                    "layers at batch 1)")
+                check_k6(torch, lap, records, step_cost)
+                check_k7(torch, auction, records, step_cost)
+            torch.cuda.synchronize()
+            zero_counts()
+            times = []
+            for _ in range(MATCHER_TIMED):
+                t0 = time.perf_counter()
+                trainer.step(batch)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            counts = launch_counts()
+            ms[impl] = sorted(times)[len(times) // 2] * 1e3
+            enc = cfg.pixel_decoder.transformer_enc_layers
+            on_device = ({MATCHER_KERNEL[impl].replace(" ", "_"): MATCHER_TIMED}
+                         if impl in MATCHER_KERNEL else {})
+            expect = expected(K1=2 * enc * MATCHER_TIMED, K2=enc * MATCHER_TIMED,
+                              K3=sum(cfg.swin.depths) * MATCHER_TIMED,
+                              **on_device)
+            if counts != expect:
+                fail(f"train matchers {impl}: launches {counts} != {expect}")
+            paths[f"train matchers/{impl}"] = counts
+            log(f"  {impl}: step ms {[round(t * 1e3, 2) for t in times]} "
+                f"(median {ms[impl]:.2f}) on {card}; {syncs[impl]} "
+                f"synchronizing calls in the criterion's first step; first "
+                f"step loss {first[impl]['loss']:.6f}; launches {counts}")
+    finally:
+        criterion.hungarian_assign = real_assign
+        criterion.set_assign_impl("scipy")
+        trainer.criterion = counted.crit
+    # the first step under each matcher against scipy's. K6 is exact: its
+    # assignment equal wherever scipy's optimum is decided by more than f32
+    # rounding (1e-6 of the optimum), its total cost within that of the
+    # optimum. The auction is JAX's approximation (its rounds end at
+    # num_iters, then a greedy finish): its total cost within JAX's own
+    # bound, 0.02 |optimum| + 1e-3 (tests/test_criterion.py). With equal
+    # assignments the losses are equal.
+    cost, n_valid, src0, valid0 = seen["scipy"]
+    c64 = np.nan_to_num(cost.double().cpu().numpy(), nan=1e8, posinf=1e8,
+                        neginf=-1e8)
+    s0 = src0.cpu().numpy()
+    for impl in ("lap", "auction"):
+        src, valid = seen[impl][2:]
+        if not torch.equal(valid, valid0):
+            fail(f"train matchers {impl}: valid differs from scipy's")
+        same = torch.equal(src, src0)
+        s, differ, worst = src.cpu().numpy(), 0, 0.0
+        for b, n in enumerate(n_valid.tolist()):
+            opt = c64[b][s0[b, :n], np.arange(n)].sum()
+            gap = c64[b][s[b, :n], np.arange(n)].sum() - opt
+            differ += int((s[b, :n] != s0[b, :n]).sum())
+            worst = max(worst, gap / max(abs(opt), 1e-12))
+            if impl == "lap":
+                margin = 1e-6 * max(abs(opt), 1.0)
+                ok = _decided_pairs(np, c64[b], s0[b], n, margin)
+                bad = (s[b, :n][ok] != s0[b, :n][ok]).any()
+            else:
+                margin, bad = 0.02 * abs(opt) + 1e-3, False
+            if bad or not gap <= margin:
+                fail(f"train matchers {impl} matrix {b}: the assignment "
+                     f"differs from scipy's where the optimum is decided, "
+                     f"or its cost {gap:+.3e} above the optimum passes "
+                     f"{margin:.3e}")
+        for key, value in first["scipy"].items():
+            if not key.startswith("loss"):
+                continue  # the gradient's norm moves with K2's atomics
+            d = abs(first[impl][key] - value)
+            if same and not d <= 1e-6 * max(abs(value), 1e-12):
+                fail(f"train matchers {impl}: first step {key} "
+                     f"{first[impl][key]} vs scipy's {value}")
+        log(f"  {impl}: first step's assignment "
+            + ("equal to scipy's" if same else
+               f"differs from scipy's in {differ} of "
+               f"{int(valid0.sum())} targets, its total cost at most "
+               f"{worst:.3e} of the optimum above it (losses not compared)")
+            + "; losses " + ", ".join(f"{k} {first[impl][k]:.6f}" for k in
+                                      ("loss_mask", "loss_dice",
+                                       "loss_class_name_class", "loss")))
+    host_ms = cuda_time_ms(lambda: real_assign(cost, n_valid), iters=10)
+    for r in records:
+        if r["kernel"] in ("K6", "K7") and r["name"].endswith(
+                str(list(cost.shape))):
+            r["scipy_host_ms"] = host_ms
+    log(f"train matchers: step ms scipy {ms['scipy']:.2f}, lap "
+        f"{ms['lap']:.2f}, auction {ms['auction']:.2f}; the criterion's "
+        f"synchronizing calls {syncs}; scipy's host route {host_ms:.4f} ms a "
+        f"call at {list(cost.shape)} (copies included) on {card}")
+    del trainer
+    return paths
+
+
+# -- phase 21: the eval runner's window guard at full width ------------------
+GUARD_RADIUS = 8.0
+# the bias's scale: offsets to 12 px, 20 px and the init's 4 px
+GUARD_SCALES = {3.0: "raised", 5.0: "fell back", 1.0: "kept"}
+
+
+def guard_slice(torch, np, card):
+    """Phase 21: EvalRunner's window-clamp guard on PSALMConfig() in
+    "window" at radius 8 (bf16, eval (5)'s geometry): the sampling_offsets
+    bias scaled so that the offsets reach 12 px (the radius must rise to
+    13 and the maps equal the exact sampler's), 20 px (the runner falls
+    back to "deformable"), and the init's 4 px (the radius stays).
+    Returns the launches of the guarded first images."""
+    import dataclasses
+    from psalm_tpu_torch import PSALMConfig
+    from psalm_tpu_torch.eval import instrument
+    from psalm_tpu_torch.eval.runner import EvalRunner, synthetic_panoptic_batch
+    from psalm_tpu_torch.models.psalm import PSALM, init_weights_
+    base = PSALMConfig(compute_dtype="bfloat16")
+    window = base.replace(pixel_decoder=dataclasses.replace(
+        base.pixel_decoder, attention_mode="window",
+        window_radius=GUARD_RADIUS))
+    exact_cfg = base.replace(pixel_decoder=dataclasses.replace(
+        base.pixel_decoder, attention_mode="deformable"))
+    K = base.num_classes + 1
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = PSALM(window, dtype=torch.bfloat16, device="cuda")
+    init_weights_(model, torch.Generator(device="cuda").manual_seed(0))
+    model.to(torch.bfloat16)
+    batch = synthetic_panoptic_batch(base, 1, K, CONTENT_HW, ORIGINAL_HW)
+    layers = [layer.self_attn
+              for layer in model.pixel_decoder.transformer.encoder.layers]
+    init_bias = [a.sampling_offsets.bias.detach().clone() for a in layers]
+    kw = dict(num_class_names=K, is_thing=[i % 2 == 0 for i in range(K - 1)],
+              bucket_hw=BUCKET_HW)
+    enc, depth = base.pixel_decoder.transformer_enc_layers, sum(
+        base.swin.depths)
+    paths = {}
+    for scale in GUARD_SCALES:
+        with torch.no_grad():
+            for a, b in zip(layers, init_bias):
+                a.sampling_offsets.bias.copy_(b * scale)
+        model.pixel_decoder.configure_sampler(window.pixel_decoder)
+        model.cfg = window
+        runner = EvalRunner(model, window, window_clamp_threshold=1e-3, **kw)
+        staged = runner.stage(batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        report = instrument.offset_clamp_report(model, staged)
+        check_ms = (time.perf_counter() - t0) * 1e3
+        zero_counts()
+        t0 = time.perf_counter()
+        res = runner.infer(batch)  # checks, then infers
+        guarded_ms = (time.perf_counter() - t0) * 1e3
+        counts = launch_counts()
+        t0 = time.perf_counter()
+        runner.infer(batch)
+        infer_ms = (time.perf_counter() - t0) * 1e3
+        stats, pd = runner.window_stats, runner.cfg.pixel_decoder
+        top = stats["max_offset_px"]
+        if instrument.summarize(report) != stats:
+            fail(f"window guard x{scale}: window_stats {stats} != the "
+                 f"report's {instrument.summarize(report)}")
+        expect = expected(K1=2 * enc, K3=2 * depth)  # the check's and infer's
+        if counts != expect:
+            fail(f"window guard x{scale}: launches {counts} != {expect}")
+        paths[f"window guard x{scale:g}"] = counts
+        want_radius = float(np.ceil(top) + 1)
+        if stats["max_clamp_frac"] <= 1e-3:
+            outcome = "kept"
+            ok = (pd == window.pixel_decoder
+                  and model.pixel_decoder.radius == GUARD_RADIUS)
+        elif want_radius <= 16:
+            outcome = "raised"
+            ok = (pd.attention_mode == "window"
+                  and pd.window_radius == want_radius
+                  and model.pixel_decoder.radius == want_radius)
+        else:
+            outcome = "fell back"
+            ok = (pd.attention_mode == "deformable"
+                  and model.pixel_decoder.radius is None)
+        if outcome != GUARD_SCALES[scale] or not ok:
+            fail(f"window guard x{scale}: offsets reach {top} px (clamp rate "
+                 f"{stats['max_clamp_frac']}); the runner must have "
+                 f"{GUARD_SCALES[scale]}: {outcome}, {pd}, radius "
+                 f"{model.pixel_decoder.radius}")
+        radius = model.pixel_decoder.radius
+        # the exact sampler's maps on the same weights and batch: the guard
+        # leaves no sample clamped
+        model.pixel_decoder.configure_sampler(exact_cfg.pixel_decoder)
+        exact = EvalRunner(model, exact_cfg, **kw).infer(batch)
+        same = [np.array_equal(res[k][0], exact[k][0])
+                for k in ("panoptic_seg", "sem_seg")]
+        if not all(same):
+            fail(f"window guard x{scale}: maps after the guard equal to the "
+                 f"exact sampler's: {same}")
+        log(f"  offsets x{scale:g}: max |offset| {top:.2f} px, clamp rate "
+            f"{stats['max_clamp_frac']:.3e} at radius {GUARD_RADIUS}; "
+            f"{outcome}: {pd.attention_mode}, radius {radius}; maps equal "
+            f"to the exact "
+            f"sampler's {same}; the check {check_ms:.2f} ms, the guarded "
+            f"image {guarded_ms:.2f} ms, one infer {infer_ms:.2f} ms on "
+            f"{card}; launches {counts}")
+    del model
+    return paths
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "psalm_tpu_torch")):
         fail("psalm_tpu_torch is not beside chip_smoke.py: run it from the "
@@ -3815,6 +4266,19 @@ def main():
     log("== train distributed (NCCL at world 1, make_mesh(1, 1), "
         "Trainer(mesh=), ZeroOptimizer, PSALMConfig(), deformable, bf16)")
     paths.update(train_dist_slice(torch, np, card, timings))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("== train matchers (PSALMConfig(), deformable, bf16, Trainer.step "
+        "under set_assign_impl scipy, lap, auction; K6 and K7 against their "
+        "plain versions)")
+    paths.update(matcher_slice(torch, np, card, records))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("== window guard (PSALMConfig(), window at radius 8, bf16, "
+        "EvalRunner's offset check, raise and fallback)")
+    paths.update(guard_slice(torch, np, card))
 
     bad = [m for m in sys.modules if m in ("jax", "flax", "optax")
            or m == "psalm_tpu" or m.startswith("psalm_tpu.")]
@@ -3835,7 +4299,10 @@ def main():
             "library_ms": r["library_ms"],
             **{k: r[k] for k in ("int4pack_ms", "kernels_per_call", "limit",
                                  "worst_of_limit", "flat_r8_ms",
-                                 "points_inside_beyond") if k in r},
+                                 "points_inside_beyond", "sequential_steps",
+                                 "scipy_host_ms") if k in r},
+            **({"replaces_kind": REPLACES_KIND[k]} if k in REPLACES_KIND
+               else {}),
             **({"path_ms_per_launch": {p: v[k] for p, v in path_ms.items()
                                        if k in v}}
                if k in ("K1", "K2") else {})})

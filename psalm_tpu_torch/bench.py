@@ -119,7 +119,7 @@ def build(mode: str, radius, cfg=None, device="cuda", batch_size=BATCH,
     batch = synthetic_panoptic_batch(cfg, batch_size, K, content, original)
     runner = EvalRunner(model, cfg, num_class_names=K,
                         is_thing=[i % 2 == 0 for i in range(K - 1)],
-                        bucket_hw=bucket)
+                        bucket_hw=bucket, window_clamp_threshold=None)
     return runner, batch
 
 

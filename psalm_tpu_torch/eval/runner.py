@@ -31,12 +31,27 @@ batch order (``all_gather_object``: the maps are ragged), so every rank
 returns the whole batch's. The batch size must be a multiple of the data
 size.
 
-The JAX runner's window-clamp telemetry and radius auto-raise are not
-ported: the port's default sampler is exact and has no radius to raise.
+The window mode's guard is JAX's (``psalm_tpu/eval/runner.py:78-86,
+188-243, 282-285``): with ``attention_mode == "window"`` and a
+``window_clamp_threshold`` (None turns it off, as the bench does), the runner
+measures the sampling offsets (``eval/instrument.py``) before it infers the
+first batch and every ``window_check_every`` batches after, keeps the worst
+case over the run in ``window_stats``, and where more than the threshold of
+the samples would be clamped raises the radius to ceil(max |offset|) + 1
+(one flat radius in place of per-point radii) or, above 16 px, falls back
+to the exact ``"deformable"`` mode. The change goes into ``self.cfg`` and
+onto the model's pixel decoder (``configure_sampler``; K1 takes the radius
+at launch, nothing is rebuilt), so it holds for every later call of the
+model. With a mesh, each data rank measures its rows and the statistics are
+reduced over the data group before the decision (the largest offset, the
+mean of the ranks' clamp shares: the whole batch's, as JAX's SPMD forward
+sees it), so every rank takes the same radius.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import math
 import sys
 from typing import Any, Dict, Optional, Tuple
 
@@ -45,9 +60,9 @@ import torch
 import torch.distributed as dist
 
 from psalm_tpu_torch.config import PSALMConfig, SegTask
-from psalm_tpu_torch.eval import geometry, postprocess
+from psalm_tpu_torch.eval import geometry, instrument, postprocess
 from psalm_tpu_torch.ops.sampling import resize_bilinear
-from psalm_tpu_torch.parallel.mesh import local_rows
+from psalm_tpu_torch.parallel.mesh import all_reduce, local_rows
 
 # arrays of the batch that the device never reads
 _HOST_ONLY = {"dataset_type", "image_id", "num_class_names", "gt_masks",
@@ -216,8 +231,9 @@ def _join(parts):
 
 class EvalRunner:
     def __init__(self, model, cfg: PSALMConfig, num_class_names=None,
-                 is_thing=None, bucket_hw: Optional[Tuple[int, int]] = None,
-                 mesh=None):
+                 is_thing=None, window_clamp_threshold: Optional[float] = 1e-3,
+                 bucket_hw: Optional[Tuple[int, int]] = None,
+                 window_check_every: int = 50, mesh=None):
         self.task = SegTask(cfg.seg_task.value)
         self.model = model
         self.cfg = cfg
@@ -228,6 +244,69 @@ class EvalRunner:
                          else np.ones(self.num_class_names - 1, bool))
         self.bucket_hw = tuple(bucket_hw) if bucket_hw else (
             cfg.image_size, cfg.image_size)
+        # the window mode's guard (module docstring)
+        self.window_clamp_threshold = window_clamp_threshold
+        self.window_stats = None
+        self.window_check_every = window_check_every
+        self._batches_seen = 0
+        self._window_enabled = (
+            cfg.pixel_decoder.attention_mode == "window"
+            and window_clamp_threshold is not None)
+
+    def _offset_report(self, staged) -> Dict[str, Dict[str, float]]:
+        """The offsets' report of this batch: with a mesh, of the whole
+        batch, from every data rank's rows."""
+        report = instrument.offset_clamp_report(self.model, staged)
+        if self.mesh is None or not report:
+            return report
+        names = list(report)
+        stats = torch.tensor([[report[n]["offset_max"], report[n]["clamp_frac"]]
+                              for n in names], device=self.device)
+        group = self.mesh.data_group
+        top = all_reduce(stats[:, 0], group, dist.ReduceOp.MAX)
+        frac = all_reduce(stats[:, 1], group) / self.mesh.data
+        return {n: {"offset_max": float(m), "clamp_frac": float(f)}
+                for n, m, f in zip(names, top.tolist(), frac.tolist())}
+
+    def _check_window_mode(self, staged) -> None:
+        """Measure the clamp rate; raise the radius (or fall back to the
+        exact sampler) where the checkpoint's offsets pass it."""
+        stats = instrument.summarize(self._offset_report(staged))
+        if self.window_stats is None:
+            self.window_stats = stats
+        else:  # the worst case over the run
+            self.window_stats = {
+                k: max(self.window_stats[k], stats[k]) for k in stats}
+        pd = self.cfg.pixel_decoder
+        radius = tuple(pd.window_point_radii) or pd.window_radius
+        frac = stats["max_clamp_frac"]
+        max_off = stats["max_offset_px"]
+        if self._batches_seen == 0:
+            print(f"window-mode check: max |offset| = {max_off:.2f} px "
+                  f"(radius {radius}), clamp rate = {frac:.2e}",
+                  file=sys.stderr)
+        if frac <= self.window_clamp_threshold:
+            return
+        # first remedy: raise the radius to fit the checkpoint's offsets (the
+        # window mode stays exact and fast); the exact sampler only for
+        # extreme offsets
+        new_radius = float(math.ceil(max_off) + 1)
+        if new_radius <= 16.0:
+            print(f"raising window radius {radius} -> {new_radius} to cover "
+                  f"the measured offsets (clamp rate was {frac:.2e})",
+                  file=sys.stderr)
+            # per-point radii (if any) fall back to one flat covering radius:
+            # the telemetry measures the global max, not per-point maxima
+            pd = dataclasses.replace(pd, window_radius=new_radius,
+                                     window_point_radii=())
+        else:
+            print(f"offsets reach {max_off:.1f} px; falling back to the "
+                  "unclamped deformable parity path", file=sys.stderr)
+            pd = dataclasses.replace(pd, attention_mode="deformable")
+            self._window_enabled = False
+        self.cfg = self.cfg.replace(pixel_decoder=pd)
+        self.model.pixel_decoder.configure_sampler(pd)
+        self.model.cfg = self.model.cfg.replace(pixel_decoder=pd)
 
     def _maybe_grow_bucket(self, batch) -> None:
         oh = np.asarray(batch["original_hw"]).reshape(-1, 2)
@@ -333,6 +412,14 @@ class EvalRunner:
         rank; ``staged`` is then this rank's rows)."""
         if "original_hw" in batch:
             self._maybe_grow_bucket(batch)
+        if self._window_enabled and (
+                self._batches_seen % self.window_check_every == 0):
+            if staged is None:
+                rows = (batch if self.mesh is None
+                        else local_rows(batch, self.mesh))
+                staged = self.stage(rows)
+            self._check_window_mode(staged)
+        self._batches_seen += 1
         if self.mesh is not None:
             out = self._infer_rows(local_rows(batch, self.mesh), staged)
             parts = [None] * self.mesh.data

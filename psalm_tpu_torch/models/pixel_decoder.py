@@ -17,6 +17,18 @@ replaces the sampler with ``DenseSelfAttention``, full non-causal attention
 over all S encoder tokens through kernel K5
 (``psalm_tpu_torch/ops/flash_attention.py``).
 
+Each ``MSDeformAttnLayer`` records its sampling offsets' statistics when
+``record_offsets`` is set (``eval/instrument.py`` sets it; otherwise it
+costs a flag test), as JAX's layer sows them
+(``psalm_tpu/models/pixel_decoder.py:107-122``): ``offset_max``, the
+largest |offset| in f32 target-level pixels, and ``offset_clamp_frac``, the
+share of the B S M L P samples whose |x| or |y| passes the point's radius
+(``window_radius``: the config's radii in every mode, max(radii) in
+``"window_pallas3"``, the radius that mode applies).
+``MSDeformAttnPixelDecoder.configure_sampler`` moves a built decoder to
+another radius or between the exact and the clamped modes without a
+rebuild: K1 takes the radius at launch.
+
 With ``remat`` (``nn.remat`` per encoder layer in JAX), a forward that
 records gradients keeps only each encoder layer's input and recomputes the
 layer in the backward (``torch.utils.checkpoint``, non-reentrant), so K1 (or
@@ -72,15 +84,44 @@ def offset_bias_init(n_heads: int, n_levels: int, n_points: int) -> np.ndarray:
     return grid.reshape(-1)
 
 
+def sampler_radii(cfg: PixelDecoderConfig):
+    """(radius K1 clamps at, or None for the exact sampler; the radius the
+    offset statistics measure against): a float, or a tuple of one radius
+    a point."""
+    window = (tuple(float(r) for r in cfg.window_point_radii)
+              or float(cfg.window_radius))
+    if cfg.attention_mode == "window_pallas3" and isinstance(window, tuple):
+        window = max(window)
+    return (window if cfg.attention_mode in _CLAMPED_MODES else None), window
+
+
+def offset_stats(offsets: torch.Tensor, radius) -> torch.Tensor:
+    """[offset_max, offset_clamp_frac] (f32, on offsets' device) of offsets
+    [B, S, M, L, P, 2] in target-level pixels against ``radius`` (a float,
+    or one a point)."""
+    absoff = offsets.float().abs()
+    P = absoff.shape[-2]
+    rad = torch.tensor(radius if isinstance(radius, tuple) else [radius] * P,
+                       dtype=torch.float32, device=absoff.device)[:, None]
+    return torch.stack([absoff.amax(),
+                        (absoff > rad).any(-1).float().mean()])
+
+
 class MSDeformAttnLayer(nn.Module):
     """Deformable self-attention (keys ``sampling_offsets``,
-    ``attention_weights``, ``value_proj``, ``output_proj``)."""
+    ``attention_weights``, ``value_proj``, ``output_proj``). ``radius``:
+    K1's clamp (None: exact); ``window_radius``: what ``offset_stats``
+    measures against."""
 
     def __init__(self, d_model: int, n_levels: int, n_heads: int,
-                 n_points: int, radius=None, dtype=torch.float32, device=None):
+                 n_points: int, radius=None, window_radius=8.0,
+                 dtype=torch.float32, device=None):
         super().__init__()
         self.n_levels, self.n_heads, self.n_points = n_levels, n_heads, n_points
         self.radius = radius
+        self.window_radius = window_radius
+        self.record_offsets = False
+        self.offset_stats = None  # [offset_max, clamp_frac] when recorded
         self.dtype = dtype
         self.sampling_offsets = Dense(d_model, n_heads * n_levels * n_points * 2,
                                       dtype=dtype, device=device)
@@ -96,6 +137,9 @@ class MSDeformAttnLayer(nn.Module):
         M, L, P = self.n_heads, self.n_levels, self.n_points
         value = self.value_proj(src).reshape(B, S, M, D // M).contiguous()
         offsets = self.sampling_offsets(query).reshape(B, S, M, L, P, 2)
+        if self.record_offsets:
+            self.offset_stats = offset_stats(offsets.detach(),
+                                             self.window_radius)
         attn = torch.softmax(self.attention_weights(query).reshape(
             B, S, M, L * P).float(), dim=-1).to(self.dtype).reshape(B, S, M, L, P)
         normalizer = torch.tensor([[w, h] for (h, w) in shapes],
@@ -140,7 +184,7 @@ class DenseSelfAttention(nn.Module):
 
 
 class EncoderLayer(nn.Module):
-    def __init__(self, cfg: PixelDecoderConfig, radius, dtype=torch.float32,
+    def __init__(self, cfg: PixelDecoderConfig, dtype=torch.float32,
                  device=None):
         super().__init__()
         d = cfg.conv_dim
@@ -148,9 +192,11 @@ class EncoderLayer(nn.Module):
             self.self_attn = DenseSelfAttention(d, cfg.transformer_nheads,
                                                 dtype=dtype, device=device)
         else:
+            radius, window = sampler_radii(cfg)
             self.self_attn = MSDeformAttnLayer(d, cfg.num_feature_levels,
                                                cfg.transformer_nheads,
                                                cfg.enc_points, radius=radius,
+                                               window_radius=window,
                                                dtype=dtype, device=device)
         self.norm1 = LayerNorm(d, device=device)
         self.linear1 = Dense(d, cfg.transformer_dim_feedforward, dtype=dtype,
@@ -173,12 +219,11 @@ class _Encoder(nn.Module):
 
 
 class _Transformer(nn.Module):
-    def __init__(self, cfg: PixelDecoderConfig, radius, dtype, device):
+    def __init__(self, cfg: PixelDecoderConfig, dtype, device):
         super().__init__()
         self.level_embed = nn.Parameter(torch.empty(
             cfg.num_feature_levels, cfg.conv_dim, device=device))
-        self.encoder = _Encoder(EncoderLayer(cfg, radius, dtype=dtype,
-                                             device=device)
+        self.encoder = _Encoder(EncoderLayer(cfg, dtype=dtype, device=device)
                                 for _ in range(cfg.transformer_enc_layers))
 
 
@@ -202,27 +247,36 @@ class MSDeformAttnPixelDecoder(nn.Module):
             raise ValueError(f"unknown attention_mode {mode!r}")
         self.cfg = cfg
         self.dtype = dtype
-        radius = None
-        if mode in _CLAMPED_MODES:
-            radius = (tuple(float(r) for r in cfg.window_point_radii)
-                      or float(cfg.window_radius))
-            if mode == "window_pallas3" and isinstance(radius, tuple):
-                radius = max(radius)
-        self.radius = radius
+        self.radius = sampler_radii(cfg)[0]
         cd = cfg.conv_dim
         # top-down order res5, res4, res3
         self.input_proj = nn.ModuleList(
             _conv_norm(ch, cd, 1, 0, dtype, device)
             for ch in reversed(cfg.in_channels[1:]))
-        self.transformer = _Transformer(cfg, radius, dtype, device)
+        self.transformer = _Transformer(cfg, dtype, device)
         self.adapter_1 = _conv_norm(cfg.in_channels[0], cd, 1, 0, dtype, device)
         self.layer_1 = _conv_norm(cd, cd, 3, 1, dtype, device)
         self.mask_features = Conv2d(cd, cfg.mask_dim, 1, dtype=dtype,
                                     device=device)
 
-    def forward(self, features: Sequence[torch.Tensor]):
+    def configure_sampler(self, cfg: PixelDecoderConfig) -> None:
+        """Take ``cfg``'s sampler (the exact or a clamped mode, its radius or
+        radii) on every layer; the weights stay. The dense mode has other
+        layers: it is refused both ways."""
+        if "dense" in (cfg.attention_mode, self.cfg.attention_mode):
+            raise ValueError("configure_sampler moves between the deformable "
+                             "and window modes, not to or from dense")
+        radius, window = sampler_radii(cfg)
+        self.cfg, self.radius = cfg, radius
+        for layer in self.transformer.encoder.layers:
+            layer.self_attn.radius = radius
+            layer.self_attn.window_radius = window
+
+    def encode(self, features: Sequence[torch.Tensor]):
+        """The deformable encoder over res5, res4, res3: ([B, S, conv_dim],
+        the levels' (H, W))."""
         c = self.cfg
-        res2, res3, res4, res5 = features
+        _, res3, res4, res5 = features
         level_embed = self.transformer.level_embed
         srcs, poss, shapes = [], [], []
         for i, x in enumerate([res5, res4, res3]):
@@ -249,7 +303,12 @@ class MSDeformAttnPixelDecoder(nn.Module):
                                use_reentrant=False)
             else:
                 x = layer(x, pos, ref_points, shapes, ref_pixels)
+        return x, shapes
 
+    def forward(self, features: Sequence[torch.Tensor]):
+        c = self.cfg
+        res2 = features[0]
+        x, shapes = self.encode(features)
         out: List[torch.Tensor] = []
         start = 0
         B = x.shape[0]

@@ -71,6 +71,11 @@ SIGNATURES = {
     # scale, stream
     "psalm_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                   _I, _I, _I, _I, _F, _P],
+    # cost, n_valid, src, valid, steps (or None), B, Q, N, stream
+    "psalm_lap_assign": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # cost, n_valid, src, valid, steps (or None), B, Q, N, num_iters,
+    # eps_scale, stream
+    "psalm_auction_assign": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

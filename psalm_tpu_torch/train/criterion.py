@@ -5,10 +5,15 @@ reference's PSALM_criterion and hungarian_matcher_PSALM):
 
   * matcher cost = 2 * (-softmax class probability) + 5 * point-sampled
     sigmoid CE + 5 * point-sampled dice, over a uniform random point set
-    shared by the image's masks; the assignment is scipy's
-    ``linear_sum_assignment`` on the host (``_lsa_host``, a copy of JAX's,
-    held equal by ``tests/test_torch_copies.py``), one call for every layer
-    of the step, as JAX batches it;
+    shared by the image's masks; one assignment call for every layer of the
+    step, as JAX batches it, by the matcher ``set_assign_impl`` selects
+    (JAX's ``criterion.py:88-127``): ``"scipy"`` (the default, as JAX picks
+    it wherever host callbacks exist), scipy's ``linear_sum_assignment`` on
+    the host (``_lsa_host``, a copy of JAX's, held equal by
+    ``tests/test_torch_copies.py``; one device-to-host copy a step);
+    ``"lap"``, the exact on-device solver (``train/lap.py``, kernel K6 on
+    the card); ``"auction"``, the approximate one (``train/auction.py``,
+    K7). The two on-device matchers copy nothing to the host;
   * mask losses: 12544 points by uncertainty sampling (oversample 3.0,
     importance 0.75), sigmoid CE mean plus dice; by default the uncertainty
     point set is shared by an image's matched masks (JAX's default), with
@@ -56,6 +61,8 @@ from psalm_tpu_torch.config import LossConfig
 from psalm_tpu_torch.ops.sampling import (UniformFn, default_uniform,
                                           point_sample)
 from psalm_tpu_torch.parallel.mesh import all_reduce, shard_draws
+from psalm_tpu_torch.train.auction import auction_assign
+from psalm_tpu_torch.train.lap import lap_assign
 
 
 # ---------------------------------------------------------------------------
@@ -79,7 +86,7 @@ def batch_dice_cost(inputs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor
 
 
 # ---------------------------------------------------------------------------
-# Hungarian assignment on the host
+# Hungarian assignment: on the host or on the device
 
 
 def _lsa_host(cost: np.ndarray, n_valid: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -100,11 +107,34 @@ def _lsa_host(cost: np.ndarray, n_valid: np.ndarray) -> Tuple[np.ndarray, np.nda
     return src, tgt
 
 
+_ASSIGN_IMPL = "scipy"  # "scipy" (host), "lap" or "auction" (on the device)
+
+
+def _assign_impl() -> str:
+    """The matcher ``hungarian_assign`` runs. JAX probes for host callbacks
+    and falls back to ``"lap"`` where they fail; PyTorch always reaches the
+    host, so the default stays ``"scipy"``."""
+    return _ASSIGN_IMPL
+
+
+def set_assign_impl(name: str) -> None:
+    global _ASSIGN_IMPL
+    assert name in ("scipy", "lap", "auction")
+    _ASSIGN_IMPL = name
+
+
 def hungarian_assign(cost: torch.Tensor, n_valid: torch.Tensor):
     """(src_idx [B, N] long, valid [B, N] bool) on cost's device: target j
-    (j < n_valid[b]) is matched to query src_idx[b, j]; 0 elsewhere. One
-    host round trip (the reference's own device-to-CPU hop)."""
-    src, _ = _lsa_host(cost.detach().float().cpu().numpy(),
+    (j < n_valid[b]) is matched to query src_idx[b, j]; 0 elsewhere. With
+    ``"scipy"`` one host round trip (the reference's own device-to-CPU
+    hop); ``"lap"`` and ``"auction"`` stay on cost's device."""
+    cost = cost.detach()
+    impl = _assign_impl()
+    if impl == "lap":
+        return lap_assign(cost, n_valid)
+    if impl == "auction":
+        return auction_assign(cost, n_valid)
+    src, _ = _lsa_host(cost.float().cpu().numpy(),
                        n_valid.detach().cpu().numpy())
     src = torch.from_numpy(src).to(cost.device)
     valid = src >= 0

@@ -23,12 +23,15 @@ world size, and data-parallel eval, on gloo CPU ranks (the port only).
   * ``EvalRunner(mesh=)`` over 2 ranks equals one process on
     tests/test_eval_dp.py's non-square batch of 4; the sampler's data-rank
     shards are disjoint and a global sum is the same on every rank
-    (tests/test_multihost.py's checks).
+    (tests/test_multihost.py's checks). In the window mode at radius 0.5,
+    the ranks' own rows give other offset statistics, yet the guard's
+    decision, ``window_stats`` and maps on every rank are one process's.
 
 Each group of ranks runs several of these in turn (``in_turn``), so that
 the processes' start-up is paid twice for the file, not once a check.
 """
 
+import dataclasses
 import json
 import os
 import shutil
@@ -216,9 +219,11 @@ def two_ranks(setup, tmp_path_factory):
                          RECORD)),
         ("resume_steps", (cfg, sd, _resume_batches(cfg), draws, 1, out, 2)),
         ("eval_and_sampler", (cfg, sd, _eval_batch(cfg), K,
-                              _criterion_inputs(cfg), draws))),
+                              _criterion_inputs(cfg), draws)),
+        ("window_guard", (_window_cfg(cfg), sd, _eval_batch(cfg), K))),
         device="cpu", threads=1)
-    return [dict(zip(("steps", "saved", "eval"), r)) for r in ranks], out
+    return [dict(zip(("steps", "saved", "eval", "guard"), r))
+            for r in ranks], out
 
 
 @pytest.fixture(scope="module")
@@ -351,6 +356,37 @@ def test_data_parallel_eval_equals_one_process(evaluated):
             np.testing.assert_array_equal(got["segments"][k],
                                           ref["segments"][k])
     assert ref["segments"]["valid"].any()
+
+
+def _window_cfg(cfg):
+    """The window mode at radius 0.5: the offsets pass it."""
+    return cfg.replace(pixel_decoder=dataclasses.replace(
+        cfg.pixel_decoder, attention_mode="window", window_radius=0.5))
+
+
+def test_data_parallel_window_guard_equals_one_process(setup, two_ranks):
+    """The window guard under a mesh: the two ranks' own rows give other
+    statistics, yet both take one process's decision on the whole batch
+    (the largest offset, the mean clamp share), and infer its maps."""
+    cfg, sd, _, _ = setup
+    wcfg = _window_cfg(cfg)
+    ref = EvalRunner(load_port(PSALM(wcfg, device="cpu"), sd), wcfg,
+                     num_class_names=K, bucket_hw=(96, 96))
+    want = ref.infer(_eval_batch(cfg))
+    ranks = [r["guard"] for r in two_ranks[0]]
+    assert ranks[0]["own"] != ranks[1]["own"]
+    assert ref.window_stats["max_clamp_frac"] > 1e-3
+    for r in ranks:
+        assert r["pixel_decoder"] == ref.cfg.pixel_decoder
+        # a batch of 2 rows rounds the offset head's products apart from one
+        # of 4: 1e-5 of the statistics
+        for k, v in ref.window_stats.items():
+            assert abs(r["stats"][k] - v) <= 1e-5 * max(abs(v), 1.0), k
+        for b in range(B):
+            np.testing.assert_array_equal(r["infer"]["panoptic_seg"][b],
+                                          want["panoptic_seg"][b])
+            np.testing.assert_array_equal(r["infer"]["sem_seg"][b],
+                                          want["sem_seg"][b])
 
 
 def test_sampler_shards_and_global_sum(evaluated):

@@ -15,6 +15,7 @@ import torch
 import psalm_tpu_torch
 from psalm_tpu_torch.ops import (_build, flash_attention, int4_matvec,
                                  msdeform, swin_attention)
+from psalm_tpu_torch.train import auction, lap
 
 
 def test_no_jax_behind_the_package():
@@ -35,7 +36,12 @@ def test_no_jax_behind_the_package():
               "checkpoint.weight_tools", "checkpoint.from_jax",
               "data.prefetch", "train.lora", "bench", "parallel.mesh",
               "parallel.tensor_parallel", "parallel.launch",
-              "parallel.dryrun", "checkpoint.mask2former"):
+              "parallel.dryrun", "checkpoint.mask2former",
+              "eval.instrument", "train.lap", "train.auction",
+              *(f"datasets_prep.{n}" for n in (
+                  "build_coco_instance", "build_coco_interactive",
+                  "build_davis", "build_grefcoco", "build_lvis",
+                  "build_refcoco", "prepare_llava_1_5"))):
         assert f"psalm_tpu_torch.{m}" in mods
     # the bench imports transformers only inside its baseline function
     code = ("import importlib, sys\n"
@@ -130,7 +136,7 @@ def test_nvcc_command_targets_sm90a():
         assert flag in cmd
     assert cmd[cmd.index("-o") + 1] == str(out)
     srcs = {p.name for p in _build.sources()}
-    assert {"msdeform.cu", "swin_attention.cu"} <= srcs
+    assert {"msdeform.cu", "swin_attention.cu", "lap.cu", "auction.cu"} <= srcs
     assert all(str(_build.CSRC_DIR / s) in cmd for s in srcs)
     assert out.parent == _build.PACKAGE_DIR.parent / "build" / "psalm_tpu_torch"
     assert _build.source_hash() in out.name
@@ -139,7 +145,9 @@ def test_nvcc_command_targets_sm90a():
 def test_nvcc_compiles_each_source_on_its_own_for_sm90a():
     srcs = _build.sources()
     assert {"int4_matvec.cu", "flash_attention.cu"} <= {p.name for p in srcs}
-    assert set(_build.SIGNATURES) >= {"psalm_flash_attention_fwd"}
+    assert set(_build.SIGNATURES) >= {"psalm_flash_attention_fwd",
+                                      "psalm_lap_assign",
+                                      "psalm_auction_assign"}
     for src in srcs:
         obj = _build.BUILD_DIR / f"{src.stem}.o"
         cmd = _build.nvcc_command("nvcc", [src], obj, compile_only=True)
@@ -759,3 +767,41 @@ def test_tiny_davis_on_the_card_matches_the_cpu(tmp_path):
         np, str(tmp_path), chip_smoke.DAVIS_VIDEOS, chip_smoke.DAVIS_FRAMES,
         chip_smoke.DAVIS_HW, chip_smoke.DAVIS_OBJECTS, seed=14)
     _tf32_off(lambda: chip_smoke.check_small_davis(torch, np, paths))
+
+
+def _matcher_case(seed, B, Q, N, n_valid):
+    rng = np.random.default_rng(seed)
+    cost = (rng.standard_normal((B, Q, N)) * 3).astype(np.float32)
+    for b in range(B):
+        cost[b, :, n_valid[b]:] = 1e8
+    return cost, np.asarray(n_valid, np.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["lap", "auction"])
+def test_matchers_match_plain_versions_on_the_card(name):
+    """K6 and K7 against their plain versions on the same card tensors,
+    integer for integer, with their step counts, and no host sync inside
+    the wrapper; at a padded batch, the full 100 x 100 square with n_valid
+    0 and 1, and integer costs with ties."""
+    _require_card()
+    fn, plain = {"lap": (lap.lap_assign, lap.lap_assign_plain),
+                 "auction": (auction.auction_assign,
+                             auction.auction_assign_plain)}[name]
+    ties = (np.random.default_rng(9).integers(0, 4, (4, 100, 16))
+            .astype(np.float32), np.asarray([16, 16, 9, 1], np.int32))
+    for cost, n_valid in (_matcher_case(0, 3, 24, 13, [13, 7, 1]),
+                          _matcher_case(4, 4, 100, 100, [100, 100, 1, 0]),
+                          ties):
+        c = torch.from_numpy(cost).cuda()
+        nv = torch.from_numpy(n_valid).cuda()
+        steps, want_steps = (torch.zeros(len(n_valid), dtype=torch.int32,
+                                         device="cuda") for _ in range(2))
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = fn(c, nv, steps=steps)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        want = plain(c, nv, steps=want_steps)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert torch.equal(steps, want_steps)

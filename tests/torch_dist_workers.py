@@ -186,6 +186,25 @@ def eval_and_sampler(cfg, sd, batch, K, crit_inputs, draws):
             "shares": criterion_shares(cfg, mesh, *crit_inputs, draws)}
 
 
+def window_guard(cfg, sd, batch, K):
+    """The data-parallel ``EvalRunner`` of ``cfg`` (the window mode) with
+    its guard on ``batch``: each rank measures its own rows, and every rank
+    must take the whole batch's decision. Returns the runner's
+    ``window_stats``, its pixel decoder's config, its results, and this
+    rank's own rows' statistics."""
+    from psalm_tpu_torch.eval import instrument
+    mesh = make_mesh(device="cpu")
+    model = PSALM(cfg, device="cpu")
+    model.load_state_dict({k: torch.as_tensor(v) for k, v in sd.items()})
+    runner = EvalRunner(model.eval(), cfg, num_class_names=K,
+                        bucket_hw=(96, 96), mesh=mesh)
+    own = instrument.summarize(instrument.offset_clamp_report(
+        model, runner.stage(local_rows(batch, mesh))))
+    out = runner.infer(batch)
+    return {"stats": runner.window_stats, "own": own, "infer": out,
+            "pixel_decoder": runner.cfg.pixel_decoder}
+
+
 def in_turn(*calls):
     """(name of a function in this module's namespace, args) of each call,
     in turn, in one process group (a group's start-up is paid once): their

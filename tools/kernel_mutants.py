@@ -33,7 +33,11 @@ exits nonzero if a mutant passed.
                      (check_k3_bwd);
   k1_k2_one_radius   K1 and K2 clamping every sampling point at the first
                      point's radius in place of its own (check_point_radii,
-                     radii 2, 4, 6, 8).
+                     radii 2, 4, 6, 8);
+  k6_no_v_update     K6 without the column duals' update v += spc - minval
+                     (check_k6);
+  k7_ties_to_higher_id  K7 giving an object to the highest person id among
+                     its equal top bids in place of the lowest (check_k7).
 """
 
 import os
@@ -44,36 +48,37 @@ import tempfile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = "psalm_tpu_torch/csrc"
-# name: (chip_smoke check, module the check takes, edits (file, old, new))
+# name: (chip_smoke check, module of psalm_tpu_torch the check takes, edits
+# (file, old, new))
 MUTANTS = {
-    "fwd_no_log2e": ("check_k5", "flash_attention", [
+    "fwd_no_log2e": ("check_k5", "ops.flash_attention", [
         (f"{CSRC}/flash_attention.cu",
          "lse, L, scale * log2e, causal);\n  return cudaGetLastError();\n}"
          "\n\n// ---- f32",
          "lse, L, scale, causal);\n  return cudaGetLastError();\n}"
          "\n\n// ---- f32")]),
-    "bwd_no_delta": ("check_k5_bwd", "flash_attention", [
+    "bwd_no_delta": ("check_k5_bwd", "ops.flash_attention", [
         (f"{CSRC}/flash_attention_bwd.cu",
          "float ds = p * (dp[b][e] - dt[col]);", "float ds = p * dp[b][e];"),
         (f"{CSRC}/flash_attention_bwd.cu",
          "p * (dp[b][e] - di[r]);", "p * dp[b][e];")]),
-    "k1_swap_fractions": ("check_k1", "msdeform", [
+    "k1_swap_fractions": ("check_k1", "ops.msdeform", [
         (f"{CSRC}/msdeform_common.cuh", "c.w[1] = scale * (gy * t.fx);",
          "c.w[1] = scale * (gx * t.fy);"),
         (f"{CSRC}/msdeform_common.cuh", "c.w[2] = scale * (t.fy * gx);",
          "c.w[2] = scale * (t.fx * gy);")]),
-    "k2_loc_x_fx": ("check_k2", "msdeform", [
+    "k2_loc_x_fx": ("check_k2", "ops.msdeform", [
         (f"{CSRC}/msdeform_bwd.cu",
          "s_x += g[e] * (gy * (v01 - v00) + t.fy * (v11 - v10));",
          "s_x += g[e] * (gx * (v01 - v00) + t.fx * (v11 - v10));")]),
-    "k2_swap_w01_w10": ("check_k2", "msdeform", [
+    "k2_swap_w01_w10": ("check_k2", "ops.msdeform", [
         (f"{CSRC}/msdeform_bwd.cu", "const float aw = a * c.w[k];",
          "const float aw = a * c.w[k == 1 ? 2 : k == 2 ? 1 : k];")]),
-    "k3_no_scale": ("check_k3", "swin_attention", [
+    "k3_no_scale": ("check_k3", "ops.swin_attention", [
         (f"{CSRC}/swin_attention.cu",
          "__floats2bfloat162_rn(f.x * scale, f.y * scale)",
          "__floats2bfloat162_rn(f.x, f.y)")]),
-    "k3_no_bias": ("check_k3", "swin_attention", [
+    "k3_no_bias": ("check_k3", "ops.swin_attention", [
         (f"{CSRC}/swin_attention.cu",
          "add = __ldg(reinterpret_cast<const float2*>(bh + at + col));",
          "add = make_float2(0.f, 0.f);"),
@@ -81,23 +86,32 @@ MUTANTS = {
          "add.x = __ldg(bh + at + col) + ", "add.x = "),
         (f"{CSRC}/swin_attention.cu",
          "add.y = __ldg(bh + at + col + 1) + ", "add.y = ")]),
-    "k4_high_scale_low": ("check_k4", "int4_matvec", [
+    "k4_high_scale_low": ("check_k4", "ops.int4_matvec", [
         (f"{CSRC}/int4_matvec.cu",
          "static_cast<long long>((half + r) / group) * N + n0;",
          "static_cast<long long>(r / group) * N + n0;")]),
-    "k3_bwd_no_rowsum": ("check_k3_bwd", "swin_attention", [
+    "k3_bwd_no_rowsum": ("check_k3_bwd", "ops.swin_attention", [
         (f"{CSRC}/swin_attention_bwd.cu",
          "s[b + c][2 * r] * (dp[c][2 * r] - dsum[r]);",
          "s[b + c][2 * r] * dp[c][2 * r];"),
         (f"{CSRC}/swin_attention_bwd.cu",
          "s[b + c][2 * r + 1] * (dp[c][2 * r + 1] - dsum[r]);",
          "s[b + c][2 * r + 1] * dp[c][2 * r + 1];")]),
-    "k3_bwd_unsummed": ("check_k3_bwd", "swin_attention", [
+    "k3_bwd_unsummed": ("check_k3_bwd", "ops.swin_attention", [
         (f"{CSRC}/swin_attention_bwd.cu", "sum += p[i * nn];",
          "sum = p[i * nn];")]),
-    "k1_k2_one_radius": ("check_point_radii", "msdeform", [
+    "k1_k2_one_radius": ("check_point_radii", "ops.msdeform", [
         (f"{CSRC}/msdeform_common.cuh", "const float radius = radii.r[p];",
          "const float radius = radii.r[0];")]),
+    "k6_no_v_update": ("check_k6", "train.lap", [
+        (f"{CSRC}/lap.cu",
+         "v[j] = __fadd_rn(v[j], sc[j] ? __fsub_rn(spc[j], minval) : 0.f);",
+         "v[j] = __fadd_rn(v[j], 0.f);")]),
+    "k7_ties_to_higher_id": ("check_k7", "train.auction", [
+        (f"{CSRC}/auction.cu", "atomicMin(&winner[j], p);",
+         "atomicMin(&winner[j], N - 1 - p);"),
+        (f"{CSRC}/auction.cu", "owner[j] = winner[j];",
+         "owner[j] = N - 1 - winner[j];")]),
 }
 
 
@@ -118,7 +132,7 @@ def run_mutant(name, check, module, edits):
                 f.write(text.replace(old, new))
         code = ("import sys, torch; sys.path.insert(0, '.'); "
                 "import chip_smoke as c; "
-                f"from psalm_tpu_torch.ops import {module} as m; "
+                f"import psalm_tpu_torch.{module} as m; "
                 f"c.{check}(torch, m, [])")
         proc = subprocess.run([sys.executable, "-c", code], cwd=dst,
                               capture_output=True, text=True, timeout=1200)
