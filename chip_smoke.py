@@ -269,6 +269,22 @@ Phases, each of which must pass:
                to the exact sampler's on the same weights, 12 K1 and 48 K3
                in the first image (the check's Swin and encoder, then the
                image), the check's ms beside one infer's.
+ 22. train distributed QLoRA - PSALMConfig() with rank-64 adapters
+               (alpha 16) on the int8 Phi base, loaded as main's builder
+               loads it (random float weights from a seed, quantized, the
+               adapters drawn), phase 10's recipe and sample: a plain
+               Trainer's first step, then Trainer(mesh=make_mesh(1, 1))
+               under NCCL at world 1 on the same seed and batch, its first
+               step's losses within 1e-3 and grad norm within 1e-2 of the
+               plain one's; psalm_finetune_mask trains the adapters and
+               every module but the tower and Phi's base; 3 timed steps,
+               12 K1, 6 K2 and 24 K3 a step, step ms and peak GiB; a
+               sharded save and a resume that gives the count, the step,
+               the parameters and the moment slices bit for bit, the int8
+               base as a fresh load gives it; an EvalRunner(mesh=) image
+               with an int8 Phi (phase 5's weights, quantized) whose maps
+               equal the one-process runner's (6 K1, 24 K3). The group is
+               destroyed at the end.
 
 Each path zeroes the launch counters just before its timed run and reads
 them just after. f32 comparisons run with TF32 off. On the line before the
@@ -278,6 +294,7 @@ with each kernel's checks, launches, times and bound. The last line is
 script imports nothing of JAX and nothing of psalm_tpu (it checks both).
 """
 
+import contextlib
 import gc
 import json
 import os
@@ -3546,6 +3563,118 @@ def optimizer_snapshot(opt):
                        for n, m in opt.state_dict()["moments"].items()}
 
 
+FIRST_STEP_KEYS = ("loss_mask", "loss_dice", "loss_class_name_class", "loss")
+
+
+def hold_first_step(what, got, want):
+    """A distributed Trainer's first step held to the plain Trainer's on the
+    same seed and batch: losses within 1e-3, grad norm within 1e-2."""
+    for k in FIRST_STEP_KEYS:
+        if not abs(got[k] - want[k]) <= 1e-3 * abs(want[k]):
+            fail(f"{what} first step {k}: {got[k]} vs the plain Trainer's "
+                 f"{want[k]}")
+    if not abs(got["grad_norm"] - want["grad_norm"]) <= \
+            1e-2 * want["grad_norm"]:
+        fail(f"{what} first step grad_norm: {got['grad_norm']} vs "
+             f"{want['grad_norm']}")
+    log("first step within 1e-3 (losses) and 1e-2 (grad norm) of the "
+        "plain Trainer's: " + ", ".join(
+            f"{k} {got[k]:.6f} / {want[k]:.6f}"
+            for k in FIRST_STEP_KEYS + ("grad_norm",)))
+
+
+def timed_steps(torch, np, trainer, batches, cfg, what):
+    """A step on each batch, host clock to a synchronize, the counters
+    zeroed before and read after: each step's seconds and the launches,
+    which must be 12 K1, 6 K2 and 24 K3 a step."""
+    zero_counts()
+    times = []
+    for batch in batches:
+        t0 = time.perf_counter()
+        metrics = trainer.step(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    counts = launch_counts()
+    values = {k: float(v) for k, v in metrics.items()}
+    if not all(np.isfinite(v) for v in values.values()):
+        fail(f"{what}: non-finite metrics {values}")
+    enc, n = cfg.pixel_decoder.transformer_enc_layers, len(batches)
+    expect = expected(K1=2 * enc * n, K2=enc * n, K3=sum(cfg.swin.depths) * n)
+    if counts != expect:
+        fail(f"{what}: kernel launches {counts} != {expect}")
+    return times, counts
+
+
+def save_snapshot(trainer):
+    """Saves ``trainer`` (every rank its moment slices) and returns what a
+    resume must give back, on the host: the step, the parameters, the
+    count and the moment slices, with the save's seconds."""
+    t0 = time.perf_counter()
+    step = trainer.state.step
+    trainer.save(step)
+    count, moments = optimizer_snapshot(trainer.optimizer)
+    return {"step": step, "count": count, "moments": moments,
+            "params": {n: p.detach().cpu() for n, p in trainer.trainable},
+            "s": time.perf_counter() - t0}
+
+
+def hold_resume(torch, rebuild, saved, out_dir, what):
+    """Resumes the Trainer that ``rebuild()`` makes from the checkpoint of
+    ``save_snapshot`` and holds its step, count, parameters and moment
+    slices bit for bit to ``saved``. Returns the resumed Trainer."""
+    t0 = time.perf_counter()
+    resumed = rebuild()
+    step = saved["step"]
+    if resumed.try_resume() != step:
+        fail(f"{what}: resumed at step {resumed.state.step}, saved at {step}")
+    count, moments = optimizer_snapshot(resumed.optimizer)
+    bad = [n for n, p in resumed.trainable
+           if not torch.equal(p.detach().cpu(), saved["params"][n])]
+    bad += [n for n, m in saved["moments"].items() for k in m
+            if not torch.equal(m[k], moments[n][k])]
+    if count != saved["count"] or set(moments) != set(saved["moments"]) \
+            or bad:
+        fail(f"{what} resume: count {count} vs {saved['count']}, {len(bad)} "
+             f"tensors differ ({bad[:3]})")
+    files = sorted(os.listdir(os.path.join(out_dir, f"checkpoint-{step}")))
+    log(f"sharded save ({files}) in {saved['s']:.1f} s and resume in "
+        f"{time.perf_counter() - t0:.1f} s: step {step}, count {count}, "
+        f"{len(saved['params'])} parameters and {2 * len(moments)} moment "
+        "slices bit for bit")
+    return resumed
+
+
+@contextlib.contextmanager
+def nccl_world_one(what):
+    """torch.distributed under NCCL at world 1, the code path of a
+    multi-card run: torchrun's variables set in this process (popped
+    after), init_distributed and make_mesh(1, 1), which it yields; the
+    group is destroyed at the end."""
+    import torch.distributed as dist
+    from psalm_tpu_torch.parallel.mesh import (free_port, init_distributed,
+                                               make_mesh)
+    torchrun = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                    MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
+    os.environ.update(torchrun)
+    try:
+        init_distributed("cuda")
+        if dist.get_backend() != "nccl":
+            fail(f"{what}: backend {dist.get_backend()}, not nccl")
+        yield make_mesh(1, 1, device="cuda")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in torchrun:
+            os.environ.pop(k, None)
+
+
+def fresh_dir(path):
+    if os.path.isdir(path):
+        import shutil
+        shutil.rmtree(path)
+    return path
+
+
 def train_dist_slice(torch, np, card, timings):
     """Phase 19: the distributed training path on one card, world 1 under
     NCCL (the code path of a multi-card run): a plain Trainer's first step,
@@ -3554,21 +3683,15 @@ def train_dist_slice(torch, np, card, timings):
     traced step's NCCL share, a sharded save and a resume held bit for bit,
     dryrun_multichip(1, "cuda"), and an EvalRunner(mesh=) image held to
     phase 5's maps; the group is destroyed at the end."""
-    import torch.distributed as dist
     from psalm_tpu_torch import PSALMConfig
     from psalm_tpu_torch.data.datasets import (SyntheticPanopticDataset,
                                                UnifiedTaskSampler, collate)
     from psalm_tpu_torch.eval.runner import EvalRunner, synthetic_panoptic_batch
     from psalm_tpu_torch.models.psalm import PSALM, init_weights_
     from psalm_tpu_torch.parallel.dryrun import dryrun_multichip
-    from psalm_tpu_torch.parallel.mesh import (free_port, init_distributed,
-                                               make_mesh)
     from psalm_tpu_torch.train.train import Trainer, build_train_config
     from psalm_tpu_torch.train.train_step import ZeroOptimizer
-    out_dir = os.path.join(HERE, "build", "train_dist")
-    if os.path.isdir(out_dir):
-        import shutil
-        shutil.rmtree(out_dir)
+    out_dir = fresh_dir(os.path.join(HERE, "build", "train_dist"))
     args = train_args(output_dir=out_dir)
     cfg = build_train_config(args)
     K = cfg.num_classes + 1
@@ -3583,14 +3706,7 @@ def train_dist_slice(torch, np, card, timings):
     gc.collect()
     torch.cuda.empty_cache()
 
-    torchrun = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
-                    MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
-    os.environ.update(torchrun)
-    try:
-        init_distributed("cuda")
-        if dist.get_backend() != "nccl":
-            fail(f"train dist: backend {dist.get_backend()}, not nccl")
-        mesh = make_mesh(1, 1, device="cuda")
+    with nccl_world_one("train dist") as mesh:
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
@@ -3600,35 +3716,9 @@ def train_dist_slice(torch, np, card, timings):
         got = first_step(trainer, batches[0])
         torch.cuda.synchronize()
         log(f"set up and first step in {time.perf_counter() - t0:.1f} s")
-        for k in ("loss_mask", "loss_dice", "loss_class_name_class", "loss"):
-            if not abs(got[k] - want[k]) <= 1e-3 * abs(want[k]):
-                fail(f"train dist first step {k}: {got[k]} vs the plain "
-                     f"Trainer's {want[k]}")
-        if not abs(got["grad_norm"] - want["grad_norm"]) <= \
-                1e-2 * want["grad_norm"]:
-            fail(f"train dist first step grad_norm: {got['grad_norm']} vs "
-                 f"{want['grad_norm']}")
-        log("first step within 1e-3 (losses) and 1e-2 (grad norm) of the "
-            "plain Trainer's: " + ", ".join(
-                f"{k} {got[k]:.6f} / {want[k]:.6f}" for k in
-                ("loss_mask", "loss_dice", "loss_class_name_class", "loss",
-                 "grad_norm")))
-        zero_counts()
-        times = []
-        for batch in batches[1:]:
-            t0 = time.perf_counter()
-            metrics = trainer.step(batch)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        counts = launch_counts()
-        values = {k: float(v) for k, v in metrics.items()}
-        if not all(np.isfinite(v) for v in values.values()):
-            fail(f"train dist: non-finite metrics {values}")
-        enc = cfg.pixel_decoder.transformer_enc_layers
-        expect = expected(K1=2 * enc * DIST_TIMED, K2=enc * DIST_TIMED,
-                          K3=sum(cfg.swin.depths) * DIST_TIMED)
-        if counts != expect:
-            fail(f"train dist: kernel launches {counts} != {expect}")
+        hold_first_step("train dist", got, want)
+        times, counts = timed_steps(torch, np, trainer, batches[1:], cfg,
+                                    "train dist")
         peak = torch.cuda.max_memory_allocated() / 2**30
         events, wall_us = device_trace(lambda: trainer.step(batches[-1]),
                                        "train dist")
@@ -3654,35 +3744,13 @@ def train_dist_slice(torch, np, card, timings):
             f"copies {dtod_us / 1e3:.3f} ms; launches per step "
             + ", ".join(f"{k} {v // DIST_TIMED}" for k, v in counts.items()
                         if v))
-
-        t0 = time.perf_counter()
-        step = trainer.state.step
-        trainer.save(step)
-        saved = {n: p.detach().cpu() for n, p in trainer.trainable}
-        count, moments = optimizer_snapshot(trainer.optimizer)
-        save_s = time.perf_counter() - t0
-        del trainer, metrics
+        saved = save_snapshot(trainer)
+        del trainer
         gc.collect()
         torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        resumed = Trainer(args, cfg, mesh=mesh)
-        if resumed.try_resume() != step:
-            fail(f"train dist: resumed at step {resumed.state.step}, "
-                 f"saved at {step}")
-        count2, moments2 = optimizer_snapshot(resumed.optimizer)
-        bad = [n for n, p in resumed.trainable
-               if not torch.equal(p.detach().cpu(), saved[n])]
-        bad += [n for n, m in moments.items() for k in m
-                if not torch.equal(m[k], moments2[n][k])]
-        if count2 != count or set(moments2) != set(moments) or bad:
-            fail(f"train dist resume: count {count2} vs {count}, "
-                 f"{len(bad)} tensors differ ({bad[:3]})")
-        log(f"sharded save ({sorted(os.listdir(os.path.join(out_dir, f'checkpoint-{step}')))}"
-            f") in {save_s:.1f} s and resume in "
-            f"{time.perf_counter() - t0:.1f} s: step {step}, count {count}, "
-            f"{len(saved)} parameters and {2 * len(moments)} moment slices "
-            "bit for bit")
-        del resumed, saved, moments, moments2
+        resumed = hold_resume(torch, lambda: Trainer(args, cfg, mesh=mesh),
+                              saved, out_dir, "train dist")
+        del resumed, saved
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -3711,16 +3779,12 @@ def train_dist_slice(torch, np, card, timings):
         if not (np.array_equal(res["panoptic_seg"][0], pan)
                 and np.array_equal(res["sem_seg"][0], sem)):
             fail("train dist: EvalRunner(mesh=)'s maps differ from phase 5's")
+        enc = cfg.pixel_decoder.transformer_enc_layers
         expect = expected(K1=enc, K3=sum(ecfg.swin.depths))
         if eval_counts != expect:
             fail(f"train dist eval: launches {eval_counts} != {expect}")
         log(f"EvalRunner(mesh=): panoptic_seg and sem_seg equal to phase 5's "
             f"({ORIGINAL_HW}); launches {eval_counts}")
-    finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
-        for k in torchrun:
-            os.environ.pop(k, None)
     return {"train dist": counts, "train dist/eval": eval_counts}
 
 
@@ -4132,6 +4196,167 @@ def guard_slice(torch, np, card):
     return paths
 
 
+# -- phase 22: QLoRA through the distributed trainer ----------------------
+QLORA_SEED = 22
+
+
+def qlora_psalm(torch, cfg, args, dtype, mesh=None, seed=QLORA_SEED):
+    """A PSALM of ``cfg`` on the card as a QLoRA run loads it: random float
+    weights from ``seed`` (init_weights_), then models/builder.py's
+    model_from_state_dict (main's builder path): Phi's linears quantized to
+    cfg.phi.quant_bits, the adapters of cfg.phi.lora_rank drawn from
+    ``seed``, f32 parameters under ``dtype`` compute, the trainer's remat;
+    with a ``mesh``, PSALM(mesh=) holding its slices."""
+    import dataclasses
+    from psalm_tpu_torch.models.builder import model_from_state_dict
+    from psalm_tpu_torch.models.psalm import PSALM, init_weights_
+    from psalm_tpu_torch.train.train import remat_pixel_policy
+    plain = cfg.replace(phi=dataclasses.replace(cfg.phi, lora_rank=0,
+                                                quant_bits=0))
+    kw = dict(remat=args.gradient_checkpointing,
+              remat_pixel=remat_pixel_policy(args, cfg))
+    base = init_weights_(PSALM(plain, dtype=dtype, device="cuda", **kw),
+                         torch.Generator(device="cuda").manual_seed(seed))
+    sd = base.state_dict()
+    del base
+    bits = cfg.phi.quant_bits
+    model = model_from_state_dict(sd, cfg, dtype=dtype, load_8bit=bits == 8,
+                                  load_4bit=bits == 4, device="cuda",
+                                  param_dtype=torch.float32, lora_seed=seed,
+                                  mesh=mesh, **kw)
+    del sd
+    return model.train()
+
+
+def train_dist_qlora_slice(torch, np, card):
+    """Phase 22: QLoRA (rank-64 adapters on the int8 Phi base) through the
+    distributed trainer on one card, world 1 under NCCL: a plain QLoRA
+    Trainer's first step, then Trainer(mesh=make_mesh(1, 1)) on the same
+    seed and sample held to it, 3 timed steps with their launches, step ms
+    and peak memory, a sharded save and a resume held bit for bit (the int8
+    base unchanged by the steps), and an EvalRunner(mesh=) image with an
+    int8 Phi held to the one-process runner's maps; the group is destroyed
+    at the end."""
+    import dataclasses
+    from psalm_tpu_torch import PSALMConfig
+    from psalm_tpu_torch.data.datasets import (SyntheticPanopticDataset,
+                                               UnifiedTaskSampler, collate)
+    from psalm_tpu_torch.eval.runner import EvalRunner, synthetic_panoptic_batch
+    from psalm_tpu_torch.models.builder import model_from_state_dict
+    from psalm_tpu_torch.models.psalm import PSALM, init_weights_
+    from psalm_tpu_torch.train.lora import is_lora
+    from psalm_tpu_torch.train.train import Trainer, build_train_config
+    from psalm_tpu_torch.train.train_step import ZeroOptimizer
+    out_dir = fresh_dir(os.path.join(HERE, "build", "train_dist_qlora"))
+    args = train_args(output_dir=out_dir, lora_rank=LORA_RANK,
+                      lora_alpha=LORA_ALPHA)
+    cfg = build_train_config(args)
+    cfg = cfg.replace(phi=dataclasses.replace(cfg.phi, quant_bits=8))
+    K = cfg.num_classes + 1
+    ds = SyntheticPanopticDataset(cfg.image_size, cfg.mask_decoder.num_queries,
+                                  K, num_samples=4, num_masks=16)
+    sampler = UnifiedTaskSampler([ds], batch_size=1)
+    batches = [collate(sampler.next_batch()) for _ in range(1 + DIST_TIMED)]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    plain = Trainer(args, cfg, model=qlora_psalm(torch, cfg, args,
+                                                 torch.bfloat16),
+                    device="cuda")
+    want = first_step(plain, batches[0])
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    with nccl_world_one("train dist qlora") as mesh:
+        def make_trainer():
+            return Trainer(args, cfg, model=qlora_psalm(
+                torch, cfg, args, torch.bfloat16, mesh), mesh=mesh)
+
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = make_trainer()
+        if not isinstance(trainer.optimizer, ZeroOptimizer):
+            fail("train dist qlora: Trainer(mesh=) did not take "
+                 "ZeroOptimizer")
+        frozen = {k: v.detach().cpu() for k, v in
+                  trainer.model.state_dict().items()
+                  if v.dtype == torch.int8}
+        n_train = sum(p.numel() for _, p in trainer.trainable)
+        n_adapters = sum(p.numel() for n, p in trainer.trainable
+                         if is_lora(n))
+        if not frozen or any(n.startswith(("model.layers.", "lm_head."))
+                             and not is_lora(n) for n, _ in trainer.trainable):
+            fail("train dist qlora: Phi's base is not the frozen int8 one")
+        got = first_step(trainer, batches[0])
+        torch.cuda.synchronize()
+        log(f"set up and first step in {time.perf_counter() - t0:.1f} s")
+        hold_first_step("train dist qlora", got, want)
+        times, counts = timed_steps(torch, np, trainer, batches[1:], cfg,
+                                    "train dist qlora")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        med = sorted(times)[len(times) // 2] * 1e3
+        log(f"train dist qlora: step ms {[round(t * 1e3, 2) for t in times]}"
+            f" (median {med:.2f}), peak memory {peak:.2f} GiB on {card}; "
+            f"batch 1, bf16 compute, f32 parameters, int8 Phi base "
+            f"({len(frozen)} int8 tensors) with rank {LORA_RANK} adapters "
+            f"({n_adapters / 1e6:.2f} M), {n_train / 1e6:.2f} M trained "
+            f"parameters, world 1 (NCCL); launches per step "
+            + ", ".join(f"{k} {v // DIST_TIMED}" for k, v in counts.items()
+                        if v))
+        saved = save_snapshot(trainer)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        resumed = hold_resume(torch, make_trainer, saved, out_dir,
+                              "train dist qlora")
+        fresh = resumed.model.state_dict()
+        moved = [k for k, v in frozen.items()
+                 if not torch.equal(fresh[k].cpu(), v)]
+        if moved:
+            fail(f"train dist qlora: the steps moved {len(moved)} int8 base "
+                 f"tensors ({moved[:3]})")
+        log(f"the {len(frozen)} int8 base tensors after the steps as a fresh "
+            "load gives them")
+        del resumed, saved, fresh, frozen
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        ecfg = PSALMConfig(compute_dtype="bfloat16")
+        ecfg = ecfg.replace(phi=dataclasses.replace(ecfg.phi, quant_bits=8))
+        base = init_weights_(PSALM(PSALMConfig(compute_dtype="bfloat16"),
+                                   dtype=torch.bfloat16, device="cuda"),
+                             torch.Generator(device="cuda").manual_seed(0))
+        model = model_from_state_dict(base.to(torch.bfloat16).state_dict(),
+                                      ecfg, dtype=torch.bfloat16,
+                                      load_8bit=True, device="cuda")
+        del base
+        batch = synthetic_panoptic_batch(ecfg, 1, K, CONTENT_HW, ORIGINAL_HW)
+        runners = [EvalRunner(model, ecfg, num_class_names=K,
+                              is_thing=[i % 2 == 0 for i in range(K - 1)],
+                              bucket_hw=BUCKET_HW, mesh=m)
+                   for m in (None, mesh)]
+        want = runners[0].infer(batch)
+        runners[1].infer(batch)
+        torch.cuda.synchronize()
+        zero_counts()
+        res = runners[1].infer(batch)
+        eval_counts = launch_counts()
+        if not (np.array_equal(res["panoptic_seg"][0], want["panoptic_seg"][0])
+                and np.array_equal(res["sem_seg"][0], want["sem_seg"][0])):
+            fail("train dist qlora: EvalRunner(mesh=)'s int8 maps differ "
+                 "from the one-process runner's")
+        expect = expected(K1=cfg.pixel_decoder.transformer_enc_layers,
+                          K3=sum(ecfg.swin.depths))
+        if eval_counts != expect:
+            fail(f"train dist qlora eval: launches {eval_counts} != {expect}")
+        log(f"EvalRunner(mesh=) with an int8 Phi: panoptic_seg and sem_seg "
+            f"equal to the one-process runner's ({ORIGINAL_HW}); launches "
+            f"{eval_counts}")
+        del model, runners
+    return {"train dist qlora": counts, "train dist qlora/eval": eval_counts}
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "psalm_tpu_torch")):
         fail("psalm_tpu_torch is not beside chip_smoke.py: run it from the "
@@ -4279,6 +4504,13 @@ def main():
     log("== window guard (PSALMConfig(), window at radius 8, bf16, "
         "EvalRunner's offset check, raise and fallback)")
     paths.update(guard_slice(torch, np, card))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("== train distributed QLoRA (NCCL at world 1, make_mesh(1, 1), "
+        "Trainer(mesh=), PSALMConfig() with rank-64 adapters on the int8 "
+        "Phi, deformable, bf16)")
+    paths.update(train_dist_qlora_slice(torch, np, card))
 
     bad = [m for m in sys.modules if m in ("jax", "flax", "optax")
            or m == "psalm_tpu" or m.startswith("psalm_tpu.")]

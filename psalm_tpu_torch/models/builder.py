@@ -13,9 +13,12 @@ compute (``param_dtype=torch.float32``) and passes PSALM's training options
 (``remat``, ``remat_pixel``, ``train_backbone``). With ``cfg.phi.lora_rank``
 > 0 the released Phi linears are grafted under the LoRA layers' ``base.``
 (``train/lora.py::graft_base_params``) and the adapters are drawn from
-``lora_seed``. Orbax directories (the JAX package's own checkpoints) need
-JAX's stack to read: they raise ``NotImplementedError`` naming
-``tools/orbax_to_torch.py``, which converts one into such a directory.
+``lora_seed``. With ``mesh=`` among the options (``PSALM(..., mesh=)``),
+each rank keeps its slices of the loaded state dict
+(``parallel.mesh.shard_state_dict``). Orbax directories (the JAX package's
+own checkpoints) need JAX's stack to read: they raise
+``NotImplementedError`` naming ``tools/orbax_to_torch.py``, which converts
+one into such a directory.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from psalm_tpu_torch.config import PSALMConfig, SegTask, config_from_json
 from psalm_tpu_torch.models.layers import LoRADense
 from psalm_tpu_torch.models.psalm import PSALM
 from psalm_tpu_torch.models.quant import quantize_phi_int4, quantize_phi_int8
+from psalm_tpu_torch.parallel.mesh import shard_state_dict
 from psalm_tpu_torch.train.lora import graft_base_params, is_lora
 
 # float tensors a bf16 load keeps in f32
@@ -95,6 +99,8 @@ def model_from_state_dict(sd: Dict[str, Any], cfg: PSALMConfig,
         if missing:
             raise KeyError(f"the checkpoint lacks {missing[:5]}")
         sd = graft_base_params(lora_sd, sd)
+    if model_kwargs.get("mesh") is not None:
+        sd = shard_state_dict(sd, model_kwargs["mesh"], cfg)
     model.load_state_dict(sd, assign=True)
     return model.eval()
 

@@ -34,6 +34,10 @@ class Generator:
 
     def __init__(self, model, max_len: int = 2048,
                  cache_dtype=torch.bfloat16, device="cuda"):
+        if getattr(model, "mesh", None) is not None:
+            raise ValueError("generation runs without tensor parallelism "
+                             "(a model built with PSALM(..., mesh=) of model "
+                             "> 1): JAX serves on no mesh")
         self.model = model
         self.max_len = max_len
         self.cache_dtype = cache_dtype

@@ -64,8 +64,11 @@ class LoRADense(nn.Module):
             self.base = Dense(in_features, out_features, bias=bias,
                               dtype=dtype, device=device)
         else:
-            raise ValueError(f"LoRA over quant_bits={quant_bits}: the base "
-                             "is float or int8")
+            raise ValueError(
+                f"LoRA over quant_bits={quant_bits}: the base is float or "
+                "int8 (psalm_tpu's LoRADense builds a float base for "
+                "quant_bits=4 without a word, so there is no int4 QLoRA to "
+                "match)")
         self.scaling = alpha / rank
         self.lora_A = _empty(in_features, rank, device=device)
         self.lora_B = _empty(rank, out_features, device=device)

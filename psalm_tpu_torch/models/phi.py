@@ -48,8 +48,12 @@ the slices ``shard_state_dict`` gives it: q/k/v and fc1 are column-parallel
 partial rotary is per head), dense and fc2 row-parallel. The parallel block
 x + attn(ln x) + mlp(ln x) sums the two row-parallel partials and
 all-reduces once, then adds dense's and fc2's whole biases. The full-
-sequence forward only (no KV cache), float linears only (no LoRA, int8 or
-int4). With m = 1 the modules are the single-process ones.
+sequence forward only (no KV cache: JAX serves on no mesh). The layers
+split only when every linear is a float ``Dense``
+(``parallel.mesh.phi_layers_split``): JAX's rules match no leaf of a LoRA,
+int8 or int4 layer, so JAX keeps such layers whole on every model rank,
+and so does the port. With LoRA or quantization, as with m = 1, the
+modules are the single-process ones.
 
 Parameter names are the released checkpoint's (``model.embed_tokens``,
 ``model.layers.N.*``, ``model.final_layernorm``).
@@ -69,6 +73,7 @@ from psalm_tpu_torch.config import PhiConfig
 from psalm_tpu_torch.models.layers import LayerNorm
 from psalm_tpu_torch.models.quant import make_dense
 from psalm_tpu_torch.ops.flash_attention import flash_attention
+from psalm_tpu_torch.parallel.mesh import phi_layers_split
 from psalm_tpu_torch.parallel.tensor_parallel import (copy_to_group,
                                                       reduce_from_group)
 
@@ -138,19 +143,12 @@ class KVCache:
 
 
 def tp_parts(cfg: PhiConfig, mesh) -> int:
-    """The model size m that Phi's layers split over (1 without a mesh);
-    raises where they cannot split."""
-    m = 1 if mesh is None else mesh.model
-    if m > 1:
-        if cfg.lora_rank or cfg.quant_bits:
-            raise ValueError(
-                "tensor parallelism (model > 1) takes Phi's float linears "
-                f"only, not lora_rank={cfg.lora_rank} or "
-                f"quant_bits={cfg.quant_bits}")
-        if cfg.num_heads % m or cfg.intermediate_size % m or \
-                cfg.vocab_size % m:
-            raise ValueError(f"Phi's heads, MLP and vocabulary do not split "
-                             f"into model {m}")
+    """The model size m that Phi's decoder layers split over: 1 without a
+    mesh and with LoRA or quantized linears (they stay whole); raises where
+    float layers cannot split."""
+    m = 1 if mesh is None or not phi_layers_split(cfg) else mesh.model
+    if m > 1 and (cfg.num_heads % m or cfg.intermediate_size % m):
+        raise ValueError(f"Phi's heads and MLP do not split into model {m}")
     return m
 
 
@@ -289,7 +287,8 @@ class PhiModel(nn.Module):
                    dtype=torch.bfloat16) -> KVCache:
         """An empty cache of ``max_len`` slots on the model's device."""
         if self.tp:
-            raise ValueError("the KV cache runs without tensor parallelism")
+            raise ValueError("the KV cache runs without tensor parallelism: "
+                             "JAX serves on no mesh")
         return KVCache(self.cfg, batch, max_len, dtype,
                        self.embed_tokens.weight.device)
 

@@ -31,11 +31,14 @@ Counterpart of ``psalm_tpu/models/psalm.py`` for two paths:
     unless ``remat_pixel`` says otherwise, the pixel decoder's encoder
     layers (the tower is not checkpointed, as in JAX).
 
-With a ``mesh`` of model size m > 1 (``parallel/mesh.py``), Phi is
-tensor-parallel over the mesh's model group (``models/phi.py``) and so is
-``lm_head``: its weight is column-parallel (vocab_size / m rows here), the
-shards of the logits are gathered before the bias, which stays whole, as in
-JAX's rules. Load the slices of ``parallel.mesh.shard_state_dict``.
+With a ``mesh`` of model size m > 1 (``parallel/mesh.py``), ``lm_head`` is
+tensor-parallel over the mesh's model group: its weight is column-parallel
+(vocab_size / m rows here), the shards of the logits are gathered before
+the bias, which stays whole, as in JAX's rules. Phi's decoder layers split
+too when every linear is a float ``Dense`` (``models/phi.py``); with LoRA
+or int8 / int4 linears they stay whole on every model rank, as JAX places
+them. Load the slices of ``parallel.mesh.shard_state_dict``. Such a model
+serves no chat: ``Generator`` refuses it (JAX serves on no mesh).
 
 Parameter names are the released checkpoint's torch keys, so
 ``load_state_dict`` takes a released-format state dict directly, or the
@@ -103,7 +106,8 @@ class PSALM(nn.Module):
     for another; ``"cuda"`` without a card raises, as torch does).
     ``use_flash`` sends Phi's full-sequence attention through kernel K5, as
     ``use_flash=True`` does in JAX (``bench.py`` builds the eval model so).
-    ``mesh``: Phi and ``lm_head`` tensor-parallel over its model group."""
+    ``mesh``: ``lm_head`` and (float linears only) Phi's decoder layers
+    tensor-parallel over its model group."""
 
     def __init__(self, cfg: PSALMConfig, dtype=torch.float32, device="cuda",
                  use_flash: bool = False, remat: bool = False,
@@ -118,7 +122,10 @@ class PSALM(nn.Module):
         D = c.phi.hidden_size
         self.model = PSALMBackbone(cfg, dtype=dtype, device=device,
                                    use_flash=use_flash, remat=remat, mesh=mesh)
-        self.mesh = mesh if self.model.tp else None
+        self.mesh = mesh if mesh is not None and mesh.model > 1 else None
+        if self.mesh is not None and c.phi.vocab_size % mesh.model:
+            raise ValueError(f"Phi's vocabulary of {c.phi.vocab_size} does "
+                             f"not split into model {mesh.model}")
         if self.mesh is None:
             self.lm_head = layers.Dense(D, c.phi.vocab_size,
                                         bias=c.phi.lm_head_bias, dtype=dtype,

@@ -16,9 +16,22 @@ per card (NCCL), or per CPU worker (gloo, for the tests).
     column-parallel (a torch weight [out, in] split on out, its bias too),
     dense and fc2 row-parallel (split on in; the bias stays whole and is
     added after the reduction), ``lm_head`` column-parallel (its bias, like
-    JAX's, whole). A spec names the mesh axis of each tensor axis;
+    JAX's, whole). A spec names the mesh axis of each tensor axis.
+    ``param_spec(name, cfg)`` places a parameter as JAX places the matching
+    leaf of the same config. JAX's rules match only ``.../kernel`` of a
+    float ``nn.Dense``; a LoRA layer's ``base/kernel``, an int8
+    ``kernel_q`` and an int4 ``kernel_q4`` / ``kernel_q4n`` fall through to
+    replicated. So with ``lora_rank`` or ``quant_bits`` set
+    (``phi_layers_split`` false) every decoder-layer tensor stays whole
+    (the int8 ``weight``, whose torch name the float rule would match,
+    among them) and only ``lm_head.weight`` splits. One placement differs
+    from JAX's: without LoRA, JAX's ``.../bias`` rule also splits a
+    quantized q/k/v/fc1 layer's bias. That is placement only (its kernel
+    is whole, so GSPMD gathers the bias back before the add and the numbers
+    are the replicated ones); the port keeps such a bias whole;
   * ``shard_state_dict`` gives a model rank its slices of a full state dict
-    and ``unshard`` puts a tensor back together over the model group;
+    and ``unshard`` puts a tensor back together over the model group; both
+    pass a whole tensor through (every LoRA and int8 / int4 layer's);
   * ``host_shard_info`` is the sampler's shard: the DATA rank, since the
     model ranks of one data group read the same samples;
   * ``local_rows`` is the counterpart of ``make_global_batch``: a process
@@ -135,17 +148,28 @@ _TP_RULES = [
 ]
 
 
-def param_spec(name: str) -> Spec:
-    """The mesh axis of each axis of parameter ``name`` (() = replicated)."""
+def phi_layers_split(cfg) -> bool:
+    """Whether Phi's decoder layers split over 'model' under ``cfg`` (a
+    ``PSALMConfig`` or its ``PhiConfig``): only when every linear is a float
+    ``Dense``, the only layer whose leaves JAX's rules match."""
+    phi = getattr(cfg, "phi", cfg)
+    return not (phi.lora_rank or phi.quant_bits)
+
+
+def param_spec(name: str, cfg) -> Spec:
+    """The mesh axis of each axis of parameter ``name`` of a model of
+    ``cfg`` (() = replicated)."""
+    if name.startswith("model.layers.") and not phi_layers_split(cfg):
+        return ()
     for pattern, spec in _TP_RULES:
         if re.search(pattern, name):
             return spec
     return ()
 
 
-def tp_axis(name: str) -> Optional[int]:
+def tp_axis(name: str, cfg) -> Optional[int]:
     """The axis that ``name`` is split on over 'model', or None."""
-    spec = param_spec(name)
+    spec = param_spec(name, cfg)
     return spec.index("model") if "model" in spec else None
 
 
@@ -157,18 +181,20 @@ def _chunk(t: torch.Tensor, axis: int, index: int, parts: int) -> torch.Tensor:
     return t.narrow(axis, index * (size // parts), size // parts)
 
 
-def shard_tensor(t: torch.Tensor, name: str, mesh: Mesh) -> torch.Tensor:
-    """This model rank's slice of the full parameter ``name`` (a view)."""
-    axis = tp_axis(name)
+def shard_tensor(t: torch.Tensor, name: str, mesh: Mesh, cfg) -> torch.Tensor:
+    """This model rank's slice of the full parameter ``name`` of a model of
+    ``cfg`` (a view)."""
+    axis = tp_axis(name, cfg)
     if axis is None or mesh.model == 1:
         return t
     return _chunk(t, axis, mesh.model_rank, mesh.model)
 
 
-def shard_state_dict(sd: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
-    """A full state dict (tensors or numpy arrays) -> this model rank's
-    slices, contiguous, for a model built with ``PSALM(..., mesh=mesh)``."""
-    return {k: shard_tensor(torch.as_tensor(v), k, mesh).contiguous()
+def shard_state_dict(sd: Dict[str, Any], mesh: Mesh, cfg) -> Dict[str, Any]:
+    """A full state dict (tensors or numpy arrays) of a model of ``cfg`` ->
+    this model rank's slices, contiguous, for a model built with
+    ``PSALM(cfg, ..., mesh=mesh)``."""
+    return {k: shard_tensor(torch.as_tensor(v), k, mesh, cfg).contiguous()
             for k, v in sd.items()}
 
 
@@ -184,10 +210,10 @@ def gather_axis(t: torch.Tensor, axis: int, group, parts: int
     return out.reshape(shape)
 
 
-def unshard(t: torch.Tensor, name: str, mesh: Mesh) -> torch.Tensor:
-    """The full parameter ``name`` from this rank's slice (collective over
-    the model group for a split parameter)."""
-    axis = tp_axis(name)
+def unshard(t: torch.Tensor, name: str, mesh: Mesh, cfg) -> torch.Tensor:
+    """The full parameter ``name`` of a model of ``cfg`` from this rank's
+    slice (collective over the model group for a split parameter)."""
+    axis = tp_axis(name, cfg)
     if axis is None or mesh.model == 1:
         return t
     return gather_axis(t, axis, mesh.model_group, mesh.model)

@@ -40,9 +40,11 @@ takes a ``parallel.mesh.Mesh``. Each data rank steps on its rows of the
 global batch, the criterion and ``llm_ce_loss`` return its share of the
 global losses (global mask, entry and token counts, the global draws' rows),
 ``ZeroOptimizer`` sums the gradients over the data group and keeps Adam's
-moments sharded over it, and with model > 1 Phi and ``lm_head`` are
-tensor-parallel (``PSALM(..., mesh=mesh)``). The logged losses are the
-global ones. A checkpoint is ``checkpoint.pt`` (rank 0: the whole
+moments sharded over it, and with model > 1 ``lm_head`` and, when every
+Phi linear is a float ``Dense``, Phi's decoder layers are tensor-parallel
+(``PSALM(..., mesh=mesh)``; a LoRA, QLoRA, int8 or int4 Phi keeps its
+layers whole on every model rank, as JAX's rules place it). The logged
+losses are the global ones. A checkpoint is ``checkpoint.pt`` (rank 0: the whole
 parameters, gathered over the model group, the step and the mesh's sizes)
 and ``optimizer-{d}-{m}.pt`` (each rank's moment slices); one process
 writes the same layout as a 1 x 1 mesh, and a resume re-slices the moments
@@ -339,7 +341,7 @@ class Trainer:
             if tp:
                 full = model.state_dict()
                 model = PSALM(self.cfg, mesh=mesh, **kw)
-                model.load_state_dict(shard_state_dict(full, mesh))
+                model.load_state_dict(shard_state_dict(full, mesh, self.cfg))
                 del full
         elif tp and model.mesh is None:
             raise ValueError("with model > 1 the Trainer takes a model built "
@@ -365,7 +367,7 @@ class Trainer:
                 names=[n for n, _ in self.trainable])
         else:
             self.optimizer = ZeroOptimizer(
-                self.trainable, mesh, args.learning_rate,
+                self.trainable, mesh, self.cfg, args.learning_rate,
                 args.num_train_steps, args.warmup_ratio, args.weight_decay)
         # the one process, or the rank that writes logs and traces
         self.rank_zero = mesh is None or mesh.rank == 0
@@ -455,7 +457,8 @@ class Trainer:
         os.makedirs(path, exist_ok=True)
         adapter = getattr(self.args, "tune_mm_mlp_adapter", False)
         m, opt = self.mesh, self.optimizer
-        params = {n: p.detach() if m is None else unshard(p.detach(), n, m)
+        params = {n: p.detach() if m is None
+                  else unshard(p.detach(), n, m, self.cfg)
                   for n, p in self.trainable
                   if not adapter or n.startswith("model.mm_projector.")}
         if not adapter:
@@ -490,7 +493,8 @@ class Trainer:
         params = dict(self.trainable)
         with torch.no_grad():
             for n, t in payload["params"].items():
-                params[n].copy_(t if m is None else shard_tensor(t, n, m))
+                params[n].copy_(t if m is None
+                                else shard_tensor(t, n, m, self.cfg))
         opt.refresh()
         if not getattr(self.args, "tune_mm_mlp_adapter", False):
             world = payload["world"]

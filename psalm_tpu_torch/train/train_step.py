@@ -21,7 +21,10 @@ What makes it equal to JAX's optax chain step for step:
   * ``grad_norm`` is ``optax.global_norm`` over every gradient, taken
     before the optional clip (``optax.clip_by_global_norm``).
 The caller leaves the frozen vision tower out of ``params``: JAX updates it
-with zero gradients, which changes nothing while the weight decay is 0.
+with zero gradients, which changes nothing while the weight decay is 0. So
+too a LoRA model's frozen base (``train/lora.py``), and the int8 / int4
+weights and scales are buffers: none of them gets a moment or, under a
+mesh, a place in a gradient bucket.
 
 ``ZeroOptimizer`` is ``Optimizer``'s step over a ``parallel.mesh.Mesh``,
 JAX's ZeRO step (``opt_state_sharding``, ``_zero_spec``), with collectives
@@ -275,20 +278,23 @@ class ZeroOptimizer(Optimizer):
     """``Optimizer`` over ``mesh``: the gradients reduced, the norm taken
     and the slices all-gathered over its groups, Adam's moments sharded
     over its data group; ``named_params`` are (name, local parameter)
-    pairs, the name deciding the tensor-parallel split."""
+    pairs of a model of ``cfg``, the name and the config deciding the
+    tensor-parallel split (``parallel.mesh.param_spec``)."""
 
-    def __init__(self, named_params, mesh: Mesh, lr: float = 6e-5,
+    def __init__(self, named_params, mesh: Mesh, cfg, lr: float = 6e-5,
                  total_steps: int = 100_000, warmup_ratio: float = 0.03,
                  weight_decay: float = 0.0, grad_clip: Optional[float] = None):
         named = list(named_params)
         self.mesh = mesh
+        self.cfg = cfg
         self.data, self.model = mesh.data, mesh.model
         self.data_rank, self.model_rank = mesh.data_rank, mesh.model_rank
         super().__init__([p for _, p in named], lr, total_steps, warmup_ratio,
                          weight_decay, grad_clip, names=[n for n, _ in named])
 
     def _layout(self):
-        tp = [tp_axis(n) if self.model > 1 else None for n in self.names]
+        tp = [tp_axis(n, self.cfg) if self.model > 1 else None
+              for n in self.names]
         axes: List[Optional[int]] = []
         for n, p, t in zip(self.names, self.params, tp):
             if self.data == 1:  # a slice would be a copy of the parameter
@@ -297,7 +303,7 @@ class ZeroOptimizer(Optimizer):
             shape = list(p.shape)
             if t is not None:
                 shape[t] *= self.model
-            spec = _zero_spec(shape, param_spec(n), self.data)
+            spec = _zero_spec(shape, param_spec(n, self.cfg), self.data)
             axes.append(spec.index("data") if "data" in spec else None)
         return tp, axes
 

@@ -16,12 +16,15 @@ of its magnitude, floored at DUST of the largest; the parameters after
 three steps by its 3-step rule. Beside it: each rank's moment slices follow
 ``_zero_spec`` composed with the tensor-parallel spec, the port's
 ``_zero_spec`` and ``_TP_RULES`` equal JAX's on a table of shapes and on the
-tiny model's every Phi name, and the multi-card dry run on the same 4 CPU
+tiny model's every Phi name (with float, LoRA, int8, int4 and LoRA-on-int8
+linears: ``phi_variant``), and the multi-card dry run on the same 4 CPU
 ranks (no test makes a process group in the pytest process itself).
 """
 
+import dataclasses
 import os
 import pickle
+import re
 import subprocess
 import sys
 
@@ -35,6 +38,7 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 from test_torch_train import (DUST, HOST_KEYS, K, LR, STEPS, _args, _batch,
                               _config, point_draws)
 
+from psalm_tpu.models import quant as jquant
 from psalm_tpu.models.psalm import PSALM as JPSALM
 from psalm_tpu.parallel import mesh as jmesh
 from psalm_tpu.train import train_step as jstep
@@ -189,11 +193,11 @@ def test_moment_slices_follow_zero_spec_with_tp(steps):
     the tensor-parallel spec over 'model' and by ``_zero_spec`` over
     'data'; Phi's q_proj split both ways on distinct axes
     (test_sharded_train.py::test_tp_shardings_survive_init_state)."""
-    _, _, ranks, sd0, _ = steps
+    cfg, _, ranks, sd0, _ = steps
     for r in ranks:
         data, model, d, m = r["mesh"]
         for name, (axis, shard, local) in r["slices"].items():
-            spec = tmesh.param_spec(name)
+            spec = tmesh.param_spec(name, cfg)
             full = sd0[name].shape
             zspec = tstep._zero_spec(full, spec, data)
             want_local = tuple(s // model if a == "model" else s
@@ -241,20 +245,89 @@ def _tp_names(cfg, variables):
     return out
 
 
-def test_tp_rules_equal_jax():
+LORA_RANK = 4
+PHI_LINEARS = ("q_proj", "k_proj", "v_proj", "dense", "fc1", "fc2")
+VARIANTS = ("float", "lora", "int8", "int4", "lora_int8")
+
+
+def phi_variant(cfg, variables, kind, seed=3):
+    """(cfg, variables) of JAX's PSALM with Phi's linears of ``kind``:
+    "float" as given; "lora" each a ``LoRADense`` over the float layer
+    (``base``), rank LORA_RANK, A and B drawn from N(0, 0.02^2) (B away
+    from zero, so that A takes a gradient); "int8" / "int4" quantized by
+    JAX's ``quantize_phi_int8`` / ``quantize_phi_int4`` (packed); and
+    "lora_int8" the LoRA tree with its bases quantized to int8 (QLoRA)."""
+    lora = kind.startswith("lora")
+    bits = {"int8": 8, "int4": 4, "lora_int8": 8}.get(kind, 0)
+    cfg = cfg.replace(phi=dataclasses.replace(
+        cfg.phi, lora_rank=LORA_RANK if lora else 0, quant_bits=bits))
+    rng = np.random.default_rng(seed)
+
+    def adapt(node):
+        k = np.asarray(node["kernel"])
+        return {"base": node,
+                "lora_A": jnp.asarray(rng.normal(
+                    0.0, 0.02, (k.shape[0], LORA_RANK)).astype(np.float32)),
+                "lora_B": jnp.asarray(rng.normal(
+                    0.0, 0.02, (LORA_RANK, k.shape[1])).astype(np.float32))}
+
+    def walk(node):
+        if not isinstance(node, dict):
+            return node
+        return {k: adapt(v) if k in PHI_LINEARS and "kernel" in v
+                else walk(v) for k, v in node.items()}
+
+    params = dict(variables["params"])
+    if lora:
+        params["phi"] = {**params["phi"],
+                         "model": walk(params["phi"]["model"])}
+    variables = {**variables, "params": params}
+    if bits == 8:
+        variables = jquant.quantize_phi_int8(variables)
+    elif bits == 4:
+        variables = jquant.quantize_phi_int4(variables)
+    return cfg, variables
+
+
+# JAX's '.../bias$' rule splits a quantized (non-LoRA) layer's q/k/v/fc1
+# bias; its kernel is whole, so that split is placement only (GSPMD gathers
+# the bias back before the add) and the port keeps the bias whole
+_QUANT_BIAS = r"phi/.*/(q_proj|k_proj|v_proj|fc1)/bias$"
+
+
+@pytest.mark.parametrize("kind", VARIANTS)
+def test_tp_rules_equal_jax(kind):
     """JAX's spec of each leaf, a kernel's reversed (flax [in, out], torch
-    [out, in]), is the port's spec of its torch name."""
-    cfg, variables = _config("deformable")
+    [out, in]), is the port's spec of its torch name, for each kind of Phi
+    linear; the one difference is the quantized bias above. A float Phi
+    splits its decoder layers and ``lm_head``; every other kind only
+    ``lm_head``, and never the int8 ``weight``."""
+    cfg, variables = phi_variant(*_config("deformable"), kind)
     pairs = _tp_names(cfg, variables)
-    split = [n for n, _ in pairs if "model" in tmesh.param_spec(n)]
-    assert len(split) == 10 * cfg.phi.num_layers + 1, split
+    split = [n for n, _ in pairs if "model" in tmesh.param_spec(n, cfg)]
+    if kind == "float":
+        assert len(split) == 10 * cfg.phi.num_layers + 1, split
+    else:
+        assert split == ["lm_head.weight"], split
+    names = {n for n, _ in pairs}
+    if kind in ("int8", "lora_int8"):
+        base = "model.layers.0.self_attn.q_proj." + (
+            "base." if kind == "lora_int8" else "")
+        assert {base + "weight", base + "scale"} <= names
+    quant_bias = 0
     for name, path in pairs:
         want = tuple(jmesh.param_spec(path))
         if path.endswith("/kernel"):
             want = tuple(reversed(want + (None,) * (2 - len(want))))
-        got = tmesh.param_spec(name)
+        got = tmesh.param_spec(name, cfg)
+        if kind in ("int8", "int4") and re.search(_QUANT_BIAS, path):
+            assert want == ("model",) and got == (), (name, path, got, want)
+            quant_bias += 1
+            continue
         assert got == want or (not any(got) and not any(want)), (name, path,
                                                                  got, want)
+    assert quant_bias == (4 * cfg.phi.num_layers
+                          if kind in ("int8", "int4") else 0)
 
 
 def test_dryrun_multichip_on_four_cpu_ranks(steps):

@@ -49,24 +49,25 @@ def make_trainer(cfg, sd, model_par, draws, distributed=True, **args_kw):
     mesh = make_mesh(model=model_par, device="cpu") if distributed else None
     model = PSALM(cfg, device="cpu", remat=True, mesh=mesh)
     model.load_state_dict({k: torch.as_tensor(v) for k, v in sd.items()}
-                          if mesh is None else shard_state_dict(sd, mesh))
+                          if mesh is None else shard_state_dict(sd, mesh, cfg))
     return Trainer(train_args(**args_kw), cfg=cfg, model=model, device="cpu",
                    mesh=mesh,
                    uniform_fn=lambda g, shape: torch.from_numpy(
                        draws[tuple(shape)]))
 
 
-def _whole(t, name, mesh):
-    return t if mesh is None else unshard(t, name, mesh)
+def _whole(t, name, trainer):
+    m = trainer.mesh
+    return t if m is None else unshard(t, name, m, trainer.cfg)
 
 
 def full_params(trainer):
-    return {n: _whole(p.detach(), n, trainer.mesh).clone()
+    return {n: _whole(p.detach(), n, trainer).clone()
             for n, p in trainer.trainable}
 
 
 def full_grads(trainer):
-    return {n: _whole(p.grad, n, trainer.mesh).clone()
+    return {n: _whole(p.grad, n, trainer).clone()
             for n, p in trainer.trainable}
 
 
@@ -203,6 +204,27 @@ def window_guard(cfg, sd, batch, K):
     out = runner.infer(batch)
     return {"stats": runner.window_stats, "own": own, "infer": out,
             "pixel_decoder": runner.cfg.pixel_decoder}
+
+
+def mesh_eval(cfg, sd, batch, K, model_par, hidden):
+    """``EvalRunner(mesh=)`` of ``cfg`` on a (world / model_par, model_par)
+    mesh, ``PSALM(cfg, mesh=)`` holding ``shard_state_dict``'s slices of
+    ``sd``: its results on ``batch``, the ``lm_head`` logits of ``hidden``
+    (``PSALM.logits``, gathered over the model group), the local shape of
+    every parameter and buffer, and (rank 0) the state dict gathered over
+    the model group by ``unshard``."""
+    mesh = make_mesh(model=model_par, device="cpu")
+    model = PSALM(cfg, device="cpu", mesh=mesh)
+    model.load_state_dict(shard_state_dict(sd, mesh, cfg))
+    runner = EvalRunner(model.eval(), cfg, num_class_names=K,
+                        bucket_hw=(96, 96), mesh=mesh)
+    with torch.no_grad():
+        logits = model.logits(torch.as_tensor(hidden))
+    local = model.state_dict()
+    gathered = {k: unshard(v, k, mesh, cfg) for k, v in local.items()}
+    return {"infer": runner.infer(batch), "logits": logits,
+            "shapes": {k: tuple(v.shape) for k, v in local.items()},
+            "gathered": gathered if mesh.rank == 0 else None}
 
 
 def in_turn(*calls):

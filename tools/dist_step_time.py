@@ -3,6 +3,7 @@
 process a card (NCCL), for each mesh given as DATAxMODEL:
 
     python3 tools/dist_step_time.py [1x1 4x1 2x2 plain ...]   # data x model
+    python3 tools/dist_step_time.py --lora_rank 64 --quant_bits 8 4x1 2x2
 
 Each mesh runs ``Trainer(args, PSALMConfig(), mesh=mesh)`` (chip_smoke.py
 phase 10's recipe: deformable, bf16 compute, f32 parameters, gradient
@@ -16,8 +17,15 @@ allows it) and ``dryrun_multichip(N, "cuda")`` on every card. One JSON line
 a mesh, with the card's name and power limit. The kernels are built once,
 before the processes start. ``plain`` runs the same steps on one card with a
 ``Trainer`` without a mesh (the one-process optimizer), to set beside 1x1.
+``--lora_rank R`` puts rank-R adapters on Phi's linears and ``--quant_bits
+8`` (or 4) quantizes Phi's base: the model is loaded as ``main``'s builder
+loads one (``chip_smoke.qlora_psalm``: random float weights from the seed,
+quantized, the adapters drawn; each rank its slices), and with LoRA the
+trainer trains ``psalm_finetune_mask``'s parameters (QLoRA with both).
 """
 
+import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -31,27 +39,30 @@ if ROOT not in sys.path:
 TIMED = 3
 
 
-def rank_steps(model_par):
+def rank_steps(model_par, lora_rank=0, quant_bits=0):
     """One rank of a mesh of the whole group (``model_par`` 0: a Trainer
     without a mesh): its step times and, on rank 0, the traced step's NCCL
     and copy time and the peak memory."""
     import torch
     import torch.distributed as dist
 
-    from chip_smoke import train_args
+    from chip_smoke import qlora_psalm, train_args
     from psalm_tpu_torch.data.datasets import SyntheticPanopticDataset, collate
     from psalm_tpu_torch.parallel.mesh import make_mesh
     from psalm_tpu_torch.train.train import Trainer, build_train_config
     mesh = make_mesh(model=model_par, device="cuda") if model_par else None
     data, data_rank = (mesh.data, mesh.data_rank) if mesh else (1, 0)
-    args = train_args()
+    args = train_args(lora_rank=lora_rank)
     cfg = build_train_config(args)
+    cfg = cfg.replace(phi=dataclasses.replace(cfg.phi, quant_bits=quant_bits))
     ds = SyntheticPanopticDataset(cfg.image_size, cfg.mask_decoder.num_queries,
                                   cfg.num_classes + 1, num_samples=data,
                                   num_masks=16)
     batch = collate([ds[data_rank]])
     torch.cuda.reset_peak_memory_stats()
-    trainer = Trainer(args, cfg, device="cuda", mesh=mesh)
+    model = (qlora_psalm(torch, cfg, args, torch.bfloat16, mesh)
+             if lora_rank or quant_bits else None)
+    trainer = Trainer(args, cfg, model=model, device="cuda", mesh=mesh)
     trainer.step(batch)
     times = []
     for _ in range(TIMED):
@@ -85,7 +96,7 @@ def rank_steps(model_par):
                                     if "nccl" in e.name.lower()})[:6]}
 
 
-def main(meshes):
+def main(meshes, lora_rank=0, quant_bits=0):
     import torch
 
     from psalm_tpu_torch.ops import _build
@@ -112,10 +123,12 @@ def main(meshes):
         data, model = (1, 0) if spec == "plain" else map(int, spec.split("x"))
         t0 = time.perf_counter()
         ranks = spawn("tools.dist_step_time:rank_steps", data * max(model, 1),
-                      (model,), device="cuda", threads=4, timeout=1200)
+                      (model, lora_rank, quant_bits), device="cuda",
+                      threads=4, timeout=1200)
         r0 = ranks[0]
         print(json.dumps({
-            "mesh": spec, "cards": card[:data * max(model, 1)],
+            "mesh": spec, "lora_rank": lora_rank, "quant_bits": quant_bits,
+            "cards": card[:data * max(model, 1)],
             "step_ms": r0["step_ms"],
             "median_ms": sorted(r0["step_ms"])[TIMED // 2],
             "peak_gib": max(r["peak_gib"] for r in ranks),
@@ -130,4 +143,10 @@ def main(meshes):
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:] or ["1x1"])
+    parser = argparse.ArgumentParser()
+    parser.add_argument("meshes", nargs="*", default=["1x1"],
+                        help="DATAxMODEL, or plain")
+    parser.add_argument("--lora_rank", type=int, default=0)
+    parser.add_argument("--quant_bits", type=int, default=0, choices=(0, 4, 8))
+    opts = parser.parse_args()
+    main(opts.meshes, opts.lora_rank, opts.quant_bits)
