@@ -72,8 +72,9 @@ Phases, each of which must pass:
                     value by 16-byte loads and K2 reduces d value by
                     vector reductions alone wherever they take channel
                     vectors, and that the model's K1 and K2 do not spill,
-                    with each K1-K5 kernel's registers, spills and shared
-                    memory.
+                    nor K6 and K7 at Q = 100 (4 columns a lane in
+                    registers), with each K1-K7 kernel's registers, spills
+                    and shared memory.
   4. small   - the whole eval slice at the tiny config in f32: kernels on the
                card against the plain versions on the CPU, same weights; the
                panoptic task, then with Phi's use_flash (heads of 32) the
@@ -248,7 +249,9 @@ Phases, each of which must pass:
                versions on the card integer for integer, with equal step
                counts, there and at [4, 100, 100] (the full square),
                [3, 100, 16] with n_valid 0, 1 and 16, integer costs with
-               ties and NaN / +-inf entries; K6's total cost equal to
+               ties, NaN / +-inf entries, and a planted permutation at
+               cost -4 over noise of sigma 0.3 ([10, 100, 16], a trained
+               model's clear optimum); K6's total cost equal to
                scipy's optimum (float64) to 1e-6 relative. Each matcher's
                first step against scipy's: the assignment equal wherever
                scipy's optimum is decided by more than the matcher's
@@ -259,7 +262,8 @@ Phases, each of which must pass:
                criterion's synchronizing calls counted ("warn"); 3 timed
                steps after the first, 12 K1, 6 K2, 24 K3 and 1 K6 or K7 a
                step; K6's and K7's device ms, their plain versions' and
-               scipy's host route (copies included) at the step's cost.
+               scipy's host route (copies included) at the step's cost;
+               each timed K6 / K7 case's us a pop / round (us_per_step).
  21. window guard - EvalRunner's window-clamp guard on PSALMConfig() in
                "window" at radius 8 (bf16, eval (5)'s model and geometry):
                the sampling_offsets bias scaled by 3 (offsets to 12 px: the
@@ -1170,6 +1174,9 @@ TENSOR_CORE_KERNELS = {"flash_attention_tc_kernel": (32, 64, 128),
 # K3's backward as Swin-B runs it (head dim 32, N = 144: 18 column blocks
 # of 8 keys), which must not spill
 K3_BWD_SWIN_B = r"window_attention_bwd_tc_kernelILi32ELi18E"
+# K6 and K7 as the training step runs them (Q = 100: 4 columns a lane, in
+# registers), which must not spill
+MATCHERS_NO_SPILL = r"(lap|auction)_kernelILi4EE"
 
 
 def cuobjdump(nvcc):
@@ -1199,8 +1206,9 @@ def check_sass(lib_path, nvcc):
     instantiation with channel vectors reads value by 16-byte loads
     (LDG.E.128) and every such K2 instantiation reduces d value by vector
     reductions only (REDG.E.ADD.F32x4, no scalar REDG); the model's K1 and
-    K2 instantiations (L = 3, P = 4) do not spill. Logs each K1-K5 kernel's
-    registers, stack, local memory (spills) and static shared memory."""
+    K2 instantiations (L = 3, P = 4) do not spill, nor K6 and K7 at 4
+    columns a lane (Q = 100). Logs each K1-K7 kernel's registers, stack, local
+    memory (spills) and static shared memory."""
     import re
     tool = cuobjdump(nvcc)
 
@@ -1262,18 +1270,24 @@ def check_sass(lib_path, nvcc):
     if len(sampler) != 32:
         fail(f"{len(sampler)} K1/K2 instantiations in the library, not 32")
     usage = run("--dump-resource-usage").splitlines()
-    k3_bwd_swin_b = 0
+    k3_bwd_swin_b = matchers_seen = 0
     for i, line in enumerate(usage):
         found = re.search(r"Function (\S+):", line)
         if found and i + 1 < len(usage) and any(
                 k in found.group(1) for k in ("flash", "window_attention",
-                                              "int4_matvec", "msdeform")):
+                                              "int4_matvec", "msdeform",
+                                              "lap_kernel", "auction_kernel")):
             res = usage[i + 1].strip()
             log(f"  {found.group(1)}: {res}")
             model = sampler.get(found.group(1))
             spills = not ("STACK:0 " in res and "LOCAL:0 " in res)
             if model and model[3:5] == ("3", "4") and spills:
                 fail(f"{found.group(1)}: the model's K1/K2 spills ({res})")
+            if re.search(MATCHERS_NO_SPILL, found.group(1)):
+                matchers_seen += 1
+                if spills:
+                    fail(f"{found.group(1)}: K6 or K7 spills at Q = 100 "
+                         f"({res})")
             if re.search(K3_BWD_SWIN_B, found.group(1)):
                 k3_bwd_swin_b += 1
                 if spills:
@@ -1282,6 +1296,9 @@ def check_sass(lib_path, nvcc):
     if k3_bwd_swin_b != 1:
         fail(f"{k3_bwd_swin_b} Swin-B instantiations of K3's backward in the "
              "resource usage, not 1")
+    if matchers_seen != 2:
+        fail(f"{matchers_seen} of K6 and K7 at 4 columns a lane in the "
+             "resource usage, not 2")
 
 
 def check_small_slice(torch, np):
@@ -3798,7 +3815,9 @@ def matcher_cases(torch, np, step_cost=None):
     """K6's and K7's inputs on the card: the training step's own cost (phase
     10's [L B, Q, N]) where main gives it, else a random stand-in of its
     shape; the full square; padding with n_valid 0 and 1; integer costs
-    with ties; NaN and +-inf entries. (name, cost, n_valid) each."""
+    with ties; NaN and +-inf entries; a planted permutation at cost -4
+    over noise of sigma 0.3, the clear optimum of a trained model's costs.
+    (name, cost, n_valid) each."""
     rng = np.random.default_rng(20)
     f32 = np.float32
     cases = []
@@ -3827,6 +3846,10 @@ def matcher_cases(torch, np, step_cost=None):
     for value in (np.nan, np.inf, -np.inf):
         odd.reshape(-1)[rng.choice(odd.size, 40, replace=False)] = value
     put("NaN and +-inf [2, 100, 16]", odd, [16, 12])
+    planted = rng.standard_normal((10, 100, 16)) * 0.3
+    for b in range(10):
+        planted[b, rng.permutation(100)[:16], np.arange(16)] = -4.0
+    put("planted [10, 100, 16]", planted, [16] * 10)
     return cases
 
 
@@ -3880,7 +3903,8 @@ def _check_matcher(torch, np, kernel, fn, plain, records, step_cost):
             f"steps a matrix {steps.tolist()}"
             + (f", total cost within {gap:.1e} of scipy's optimum"
                if kernel == "K6" else ""))
-        if name.startswith(("the training step", "random", "full square")):
+        if name.startswith(("the training step", "random", "full square",
+                            "planted")):
             timed.append((name, cost, n_valid, steps))
     for name, cost, n_valid, steps in timed:
         bnd = matcher_bound(kernel, cost, n_valid, steps)
@@ -3889,7 +3913,13 @@ def _check_matcher(torch, np, kernel, fn, plain, records, step_cost):
                lambda: fn(cost, n_valid), lambda: plain(cost, n_valid), None,
                bnd, plain_iters=3, plain_warmup=1)
         records[-1]["sequential_steps"] = int(steps.max())
+        # the block of the most pops / rounds sets the launch's time
+        records[-1]["us_per_step"] = (records[-1]["ms"] * 1e3
+                                      / max(int(steps.max()), 1))
         records[-1]["limit"] = "equal integers"
+        log(f"  {kernel} {name}: {records[-1]['us_per_step']:.4f} us a "
+            f"{'pop' if kernel == 'K6' else 'round'} over "
+            f"{int(steps.max())} sequential steps")
 
 
 def check_k6(torch, lap, records, step_cost=None):
@@ -4532,6 +4562,7 @@ def main():
             **{k: r[k] for k in ("int4pack_ms", "kernels_per_call", "limit",
                                  "worst_of_limit", "flat_r8_ms",
                                  "points_inside_beyond", "sequential_steps",
+                                 "us_per_step",
                                  "scipy_host_ms") if k in r},
             **({"replaces_kind": REPLACES_KIND[k]} if k in REPLACES_KIND
                else {}),

@@ -10,11 +10,13 @@ unassigned at the end take, in order, their best free query. It is
 approximate (JAX measured 0.08% above the optimum on random costs); the
 exact matcher is ``train/lap.py``.
 
-``auction_assign`` launches K7 (``csrc/auction.cu``: a block per image,
-values, prices and owners in shared memory, rounds until the image is done
-or ``num_iters``, the greedy finish in the same launch) for a CUDA tensor;
-a CPU tensor takes ``auction_assign_plain``, JAX's batched arithmetic in
-torch with the loop's stop condition on the host. JAX stops the whole batch
+``auction_assign`` launches K7 (``csrc/auction.cu``: a block per image, a
+warp a person, values, prices and owners in shared memory; a round is two
+barriers: the bids, each one packed 64-bit atomic max of (bid, N - 1 -
+person) on its object, then each object's update; rounds until the image
+is done or ``num_iters``, the greedy finish in the same launch) for a CUDA
+tensor; a CPU tensor takes ``auction_assign_plain``, JAX's batched
+arithmetic in torch with the loop's stop condition on the host. JAX stops the whole batch
 at once; a finished image's rounds change nothing, so K7's blocks stop on
 their own.
 
@@ -124,9 +126,10 @@ def auction_assign_plain(cost: torch.Tensor, n_valid: torch.Tensor,
 
 
 def smem_bytes(N: int, Q: int) -> int:
-    """Shared memory of one K7 block: the value matrix and the round's
-    state (csrc/auction.cu::smem_layout)."""
-    return 4 * (N * Q + 4 * Q + 4 * N)
+    """Shared memory of one K7 block: the round's 64-bit bid keys, the value
+    matrix, prices, owners, ``assigned`` and ``src``
+    (csrc/auction.cu::smem_layout)."""
+    return 8 * Q + 4 * (N * Q + 2 * Q + 2 * N)
 
 
 def auction_assign(cost: torch.Tensor, n_valid: torch.Tensor,

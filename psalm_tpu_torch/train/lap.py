@@ -15,12 +15,14 @@ result is the one the search gets when it stops at the first free column
      valid [B, N]     bool, j < n_valid[b]
 
 ``lap_assign`` launches K6 (``csrc/lap.cu``: a block per cost matrix, the
-duals, the search state and the matrix in shared memory, one warp-wide
-argmin a pop) for a CUDA tensor, with no device-to-host copy and output
-shapes that do not depend on ``n_valid``'s values; a CPU tensor takes
-``lap_assign_plain``, batched torch ops that repeat ``_solve_single``'s f32
-arithmetic in its order, ties of every argmin to the lowest index as
-``jnp.argmin`` breaks them.
+matrix, ``u`` and the matching in shared memory; one warp solves it, each
+lane holding its columns' ``v`` and a search's ``spc``, ``path``, scanned
+flags and owners in registers; a pop's argmin is two ``redux.sync`` on
+ordered-int keys and its column's ``spc`` and owner one shuffle) for a CUDA
+tensor, with no device-to-host copy and output shapes that do not depend on
+``n_valid``'s values; a CPU tensor takes ``lap_assign_plain``, batched torch
+ops that repeat ``_solve_single``'s f32 arithmetic in its order, ties of
+every argmin to the lowest index as ``jnp.argmin`` breaks them.
 """
 
 from __future__ import annotations
@@ -128,9 +130,10 @@ def lap_assign_plain(cost: torch.Tensor, n_valid: torch.Tensor,
 
 
 def smem_bytes(N: int, Q: int) -> int:
-    """Shared memory of one K6 block: the guarded matrix and the state
+    """Shared memory of one K6 block: the guarded matrix, ``u``, a row's
+    ``path``, the matching and the scanned rows' flags
     (csrc/lap.cu::smem_layout)."""
-    return 4 * (N * Q + 2 * N + 4 * Q) + (N + Q)
+    return 4 * (N * Q + 2 * N + 2 * Q) + N
 
 
 def launch_buffers(name: str, cost: torch.Tensor, n_valid: torch.Tensor,

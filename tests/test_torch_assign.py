@@ -5,6 +5,10 @@ each ``set_assign_impl`` matcher on both sides, and the wrappers' dispatch
 (the plain version for a CPU tensor, the kernel or an error for any other).
 The kernels against their plain versions on a card are in
 tests/test_torch_package.py (marked ``gpu``: that file imports no JAX).
+The kernels' warp reductions on ordered-int keys (K6's argmin, K7's best,
+second best and winning bid) are emulated here in numpy and held against
+the plain versions' choices on inputs full of ties, with two broken keys
+that must pick otherwise; these run no JAX.
 
 Tolerances: assignments equal, integer for integer (random costs, whose
 optimum is unique, and for the auction its own rounds: the same f32 bids in
@@ -233,3 +237,165 @@ def test_wrappers_check_inputs_before_launch(name, monkeypatch):
     with pytest.raises(ValueError, match="cost is on meta"):
         fn(torch.empty(2, 10, 4, device="meta"), torch.empty(2, device="meta"))
     assert module.LAUNCHES == n
+
+
+# -- the kernels' keyed reductions, emulated in numpy ------------------------
+# K6 (csrc/lap.cu) and K7 (csrc/auction.cu) reduce over a warp by redux.sync
+# on ordered-int keys: K6's argmin is the least key, then the lowest column
+# among the lanes that hold it; K7's best and second best the same on a max;
+# K7's winner of an object the largest 64-bit key (bid's order << 32 |
+# N - 1 - p). The emulations below follow the kernels lane by lane and are
+# held against the choices the plain versions make with torch's argmin,
+# argmax, amax and scatter_reduce. Each mutant is a kernel's key with one
+# part dropped: "no_plus_zero" keys x in place of x + 0.0f (-0.0 then keys
+# below +0.0, though the two compare equal), "no_inverted_id" packs p in
+# place of N - 1 - p (equal bids then go to the higher id). Each must pick
+# otherwise than the plain version on some of these inputs.
+
+I32_MAX = np.iinfo(np.int32).max
+I32_MIN = np.iinfo(np.int32).min
+F32_NEG = np.float32(auction.NEG)
+
+
+def _key(x, mutant=None):
+    """csrc's key_of: x + 0.0f (a scalar f32), its bits ordered as the
+    floats order."""
+    x = np.float32(x)
+    if mutant != "no_plus_zero":
+        x = np.float32(x + np.float32(0.0))
+    i = int(np.array(x).view(np.int32))
+    return i if i >= 0 else i ^ 0x7fffffff
+
+
+def _unkey(k):
+    """The float of a key (an int32, or its 32 bits unsigned)."""
+    k = k - (1 << 32) if k >= 1 << 31 else k
+    return float(np.array(k if k >= 0 else k ^ 0x7fffffff,
+                          np.int32).view(np.float32))
+
+
+def emulate_k6_argmin(spc, scanned, mutant=None):
+    """A K6 pop's column: lane l scans its columns l, l + 32, ... in order,
+    a scanned one read as INF, its first column seeding its minimum and a
+    later one taking it only if less (float compares); then the least key
+    of the lanes' minima, then the lowest column among the lanes that hold
+    it (a lane without columns offers a key above every float's)."""
+    Q = len(spc)
+    best = [I32_MAX] * 32
+    idx = [I32_MAX] * 32
+    for lane in range(32):
+        low = None
+        for j in range(lane, Q, 32):
+            val = np.float32(np.inf if scanned[j] else spc[j])
+            if low is None or val < low:
+                low, idx[lane] = val, j
+        if low is not None:
+            best[lane] = _key(low, mutant)
+    top = min(best)
+    return min(i for b, i in zip(best, idx) if b == top)
+
+
+def emulate_k7_best(net, mutant=None):
+    """A K7 bidder's (best_j, best, second): each lane's first maximum and
+    its second best by float compares, then the greatest key, the lowest
+    object that holds it, and the greatest key of the rest (the lane of
+    best_j offers its second best), second at least NEG."""
+    Q = len(net)
+    b1, s1, i1 = [-np.inf] * 32, [-np.inf] * 32, [I32_MAX] * 32
+    for lane in range(32):
+        for j in range(lane, Q, 32):
+            n = np.float32(net[j])
+            if n > b1[lane]:
+                s1[lane], b1[lane], i1[lane] = b1[lane], n, j
+            elif n > s1[lane]:
+                s1[lane] = n
+    keys = [_key(b, mutant) for b in b1]
+    top = max(keys)
+    best_j = min(i for k, i in zip(keys, i1) if k == top)
+    rest = max(_key(s if i == best_j else b, mutant)
+               for b, s, i in zip(b1, s1, i1))
+    return best_j, _unkey(top), max(_unkey(rest), float(F32_NEG))
+
+
+def emulate_k7_winners(bid, best_j, unassigned, Q, mutant=None):
+    """Each object's (winner, price) from one 64-bit atomic max a bid above
+    NEG: winner N and no price where no bid arrived."""
+    N = len(bid)
+    top = [0] * Q
+    for p in range(N):
+        if unassigned[p] and np.float32(bid[p]) > F32_NEG:
+            hi = (_key(bid[p], mutant) ^ 0x80000000) & 0xffffffff
+            lo = p if mutant == "no_inverted_id" else N - 1 - p
+            top[best_j[p]] = max(top[best_j[p]], hi << 32 | lo)
+    winner = [N if k == 0 else (k & 0xffffffff if mutant == "no_inverted_id"
+                                else N - 1 - (k & 0xffffffff)) for k in top]
+    price = [None if k == 0 else _unkey((k >> 32) ^ 0x80000000) for k in top]
+    return winner, price
+
+
+def _k6_argmin_case(rng):
+    Q = int(rng.choice([7, 16, 40, 100]))
+    spc = rng.choice(np.asarray([-1.0, -0.0, 0.0, 0.0, 2.0, np.inf],
+                                np.float32), Q)
+    scanned = rng.random(Q) < 0.3
+    got = lambda mutant: emulate_k6_argmin(spc, scanned, mutant)
+    want = int(torch.where(torch.from_numpy(scanned), lap.INF,
+                           torch.from_numpy(spc)).argmin())
+    return got, want
+
+
+def _k7_best_case(rng):
+    Q = int(rng.choice([1, 7, 16, 40, 100]))
+    top = [1.5, 1.5] if rng.random() < 0.5 else []  # else +-0.0 is the best
+    net = rng.choice(np.asarray([-3.0, -0.0, 0.0, -2e9] + top, np.float32), Q)
+    t = torch.from_numpy(net)[None]
+    j = t.argmax(1)
+    want = (int(j), float(t.amax(1)),
+            float(t.scatter(1, j[:, None], auction.NEG).amax(1)))
+    return lambda mutant: emulate_k7_best(net, mutant), want
+
+
+def _k7_winner_case(rng):
+    N, Q = int(rng.choice([3, 16, 100])), int(rng.choice([4, 100]))
+    bid = rng.choice(np.asarray([-2e9, auction.NEG, -0.0, 0.0, 0.5, 0.5, 2.0],
+                                np.float32), N)
+    best_j = rng.integers(0, min(Q, 4), N)
+    unassigned = rng.random(N) < 0.7
+    # auction_assign_plain's round, on one image
+    ids = torch.arange(N)
+    un, bj = torch.from_numpy(unassigned), torch.from_numpy(best_j)
+    bid_masked = torch.where(un, torch.from_numpy(bid), auction.NEG)
+    obj_bid = torch.full((Q,), auction.NEG).scatter_reduce(0, bj, bid_masked,
+                                                           "amax")
+    has_bid = obj_bid > auction.NEG
+    is_winner = un & (bid_masked >= obj_bid[bj]) & has_bid[bj]
+    winner = torch.full((Q,), N).scatter_reduce(
+        0, bj, torch.where(is_winner, ids, N), "amin")
+    want = (winner.tolist(), [float(obj_bid[j]) if w < N else None
+                              for j, w in enumerate(winner.tolist())])
+    return (lambda mutant: emulate_k7_winners(bid, best_j, unassigned, Q,
+                                              mutant)), want
+
+
+KEYED = {"k6_argmin": _k6_argmin_case, "k7_best_second": _k7_best_case,
+         "k7_winner": _k7_winner_case}
+
+
+@pytest.mark.parametrize("reduction, mutant", [
+    ("k6_argmin", None), ("k6_argmin", "no_plus_zero"),
+    ("k7_best_second", None), ("k7_best_second", "no_plus_zero"),
+    ("k7_winner", None), ("k7_winner", "no_inverted_id"),
+    ("k7_winner", "no_plus_zero")])
+def test_kernel_keyed_reductions_pick_as_the_plain_versions(reduction, mutant):
+    """On 300 seeded inputs full of ties (equal values in different lanes,
+    +-0.0, INF, bids at and below NEG) each kernel's keyed reduction picks
+    what the plain version picks; each mutant picks otherwise on some."""
+    rng = np.random.default_rng(16)
+    differ = 0
+    for _ in range(300):
+        got, want = KEYED[reduction](rng)
+        differ += got(mutant) != want
+    if mutant is None:
+        assert differ == 0
+    else:
+        assert differ > 0, f"the mutant {mutant} picked as the plain version"

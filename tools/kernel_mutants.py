@@ -36,7 +36,8 @@ exits nonzero if a mutant passed.
                      radii 2, 4, 6, 8);
   k6_no_v_update     K6 without the column duals' update v += spc - minval
                      (check_k6);
-  k7_ties_to_higher_id  K7 giving an object to the highest person id among
+  k7_ties_to_higher_id  K7 packing p in place of N - 1 - p into its bid
+                     keys: an object goes to the highest person id among
                      its equal top bids in place of the lowest (check_k7).
 """
 
@@ -105,13 +106,14 @@ MUTANTS = {
          "const float radius = radii.r[0];")]),
     "k6_no_v_update": ("check_k6", "train.lap", [
         (f"{CSRC}/lap.cu",
-         "v[j] = __fadd_rn(v[j], sc[j] ? __fsub_rn(spc[j], minval) : 0.f);",
-         "v[j] = __fadd_rn(v[j], 0.f);")]),
+         "v[k] = __fadd_rn(v[k], sc ? __fsub_rn(spc[k], minval) : 0.f);",
+         "v[k] = __fadd_rn(v[k], 0.f);")]),
     "k7_ties_to_higher_id": ("check_k7", "train.auction", [
-        (f"{CSRC}/auction.cu", "atomicMin(&winner[j], p);",
-         "atomicMin(&winner[j], N - 1 - p);"),
-        (f"{CSRC}/auction.cu", "owner[j] = winner[j];",
-         "owner[j] = N - 1 - winner[j];")]),
+        (f"{CSRC}/auction.cu", "static_cast<unsigned>(N - 1 - p);",
+         "static_cast<unsigned>(p);"),
+        (f"{CSRC}/auction.cu",
+         "return N - 1 - static_cast<int>(static_cast<unsigned>(key));",
+         "return static_cast<int>(static_cast<unsigned>(key));")]),
 }
 
 
