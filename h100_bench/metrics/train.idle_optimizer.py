@@ -1,0 +1,10 @@
+"""Share of the traced training window that the card idled while the host's
+innermost open span was ``psalm::train.optimizer`` (``optimizer.step()`` in
+``train_step``), in % (``h100_bench/program_spans.py``; top span
+``psalm::train.step``)."""
+
+from h100_bench import program_spans
+
+
+def read(trace):
+    return program_spans.idle_share(trace, "train.step", "train.optimizer")

@@ -63,6 +63,7 @@ from psalm_tpu_torch.config import PSALMConfig, SegTask
 from psalm_tpu_torch.eval import geometry, instrument, postprocess
 from psalm_tpu_torch.ops.sampling import resize_bilinear
 from psalm_tpu_torch.parallel.mesh import all_reduce, local_rows
+from psalm_tpu_torch.spans import span, spanned
 
 # arrays of the batch that the device never reads
 _HOST_ONLY = {"dataset_type", "image_id", "num_class_names", "gt_masks",
@@ -319,6 +320,7 @@ class EvalRunner:
               f"{oh.max(0).tolist()}", file=sys.stderr)
         self.bucket_hw = new
 
+    @spanned("runner.stage")
     def stage(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """The arrays the model reads, as tensors on the model's device (the
         ground truth stays on the host: only the metric accumulators read
@@ -347,6 +349,15 @@ class EvalRunner:
             max_regions=(tbatch["region_points"].shape[1]
                          if "region_points" in tbatch else 0),
             num_class_names=self.num_class_names)
+        with span("runner.heads"):
+            return self._heads(out, content, original)
+
+    def _heads(self, out: Dict[str, torch.Tensor], content: np.ndarray,
+               original: np.ndarray) -> Dict[str, Any]:
+        """The task's head on the model's outputs, the masks restored to
+        each image's original grid first (but SEMANTIC's, module
+        docstring)."""
+        task = self.task
         masks = out["pred_masks"].float()  # [B, Q, S/4, S/4]
         B, Q = masks.shape[:2]
         S = self.cfg.image_size
@@ -405,6 +416,7 @@ class EvalRunner:
                SegTask.REGION: "region"}[task]
         return {key: self._stack(results)}
 
+    @spanned("runner.infer")
     def infer(self, batch: Dict[str, np.ndarray],
               staged: Optional[Dict[str, torch.Tensor]] = None
               ) -> Dict[str, Any]:
@@ -438,10 +450,11 @@ class EvalRunner:
         if staged is None:
             staged = self.stage(batch)
         out = self._infer_device(staged, content, original)
-        out = {k: ({n: t.cpu().numpy() for n, t in v.items()}
-                   if isinstance(v, dict) else v.cpu().numpy())
-               for k, v in out.items()}
-        return self._crop_to_original(out, original)
+        with span("runner.results"):
+            out = {k: ({n: t.cpu().numpy() for n, t in v.items()}
+                       if isinstance(v, dict) else v.cpu().numpy())
+                   for k, v in out.items()}
+            return self._crop_to_original(out, original)
 
     @staticmethod
     def _crop_to_original(out: Dict[str, Any], original_hw: np.ndarray

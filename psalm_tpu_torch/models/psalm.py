@@ -66,6 +66,7 @@ from psalm_tpu_torch.models.projector import build_projector
 from psalm_tpu_torch.models.swin import SwinTransformer, WindowAttention
 from psalm_tpu_torch.ops.sampling import point_sample
 from psalm_tpu_torch.parallel.tensor_parallel import copy_to_group, gather_last
+from psalm_tpu_torch.spans import span, spanned
 
 PIXEL_MEAN = (123.675, 116.28, 103.53)
 PIXEL_STD = (58.395, 57.12, 57.375)
@@ -153,17 +154,19 @@ class PSALM(nn.Module):
         tower records no graph, so no gradient reaches it or is kept for it;
         a training tower (``train_backbone``) records it and draws its drop
         path from ``generator`` (none: deterministic)."""
-        if images.dtype == torch.uint8:
-            mean = torch.tensor(PIXEL_MEAN, device=images.device)
-            std = torch.tensor(PIXEL_STD, device=images.device)
-            images = (images.float() - mean) / std
-        if train and not self.train_backbone:
-            with torch.no_grad():
-                feats = self.model.vision_tower(images)
-        else:
-            feats = self.model.vision_tower(images,
-                                            generator if train else None)
-        return feats, self.model.mm_projector(feats[-1])
+        with span("model.swin"):
+            if images.dtype == torch.uint8:
+                mean = torch.tensor(PIXEL_MEAN, device=images.device)
+                std = torch.tensor(PIXEL_STD, device=images.device)
+                images = (images.float() - mean) / std
+            if train and not self.train_backbone:
+                with torch.no_grad():
+                    feats = self.model.vision_tower(images)
+            else:
+                feats = self.model.vision_tower(images,
+                                                generator if train else None)
+        with span("model.projector"):
+            return feats, self.model.mm_projector(feats[-1])
 
     def sample_regions(self, image_tokens: torch.Tensor,
                        region_points: torch.Tensor) -> torch.Tensor:
@@ -178,6 +181,7 @@ class PSALM(nn.Module):
                                align_corners=True)
         return sampled.reshape(B, R, P, D).mean(dim=2)
 
+    @spanned("model.splice")
     def assemble_embeddings(self, tok_ids, src_type, src_idx, image_tokens,
                             region_tokens=None):
         """The spliced input sequence [B, L, D]: text embeddings, image tokens
@@ -200,6 +204,7 @@ class PSALM(nn.Module):
                               take(region_tokens), seq)
         return seq
 
+    @spanned("model")
     def forward(self, batch: Dict[str, torch.Tensor], *,
                 use_class_names: bool = True,
                 use_seg_embedding: bool = False,
@@ -233,7 +238,8 @@ class PSALM(nn.Module):
         seq = self.assemble_embeddings(batch["tok_ids"], batch["src_type"],
                                        batch["src_idx"], image_tokens,
                                        region_tokens)
-        hidden = self.model(seq, attention_mask=batch["attention_mask"])
+        with span("model.phi"):
+            hidden = self.model(seq, attention_mask=batch["attention_mask"])
 
         def rows(mask, count):  # hidden states at the first `count` marks
             pos = positions_of_mask(mask, count)
@@ -269,13 +275,15 @@ class PSALM(nn.Module):
                 rows(batch["region_embedding_mask"], R))
             region_valid = batch.get("region_valid")
 
-        mask_features, _, multi_scale = self.pixel_decoder(feats)
-        out = self.predictor(multi_scale, mask_features, seg_query,
-                             SEG_embedding=SEG_embedding,
-                             class_name_embedding=class_name_embedding,
-                             class_name_valid=valid,
-                             region_embedding=region_embedding,
-                             region_valid=region_valid)
+        with span("model.pixel_decoder"):
+            mask_features, _, multi_scale = self.pixel_decoder(feats)
+        with span("model.mask_decoder"):
+            out = self.predictor(multi_scale, mask_features, seg_query,
+                                 SEG_embedding=SEG_embedding,
+                                 class_name_embedding=class_name_embedding,
+                                 class_name_valid=valid,
+                                 region_embedding=region_embedding,
+                                 region_valid=region_valid)
         if compute_logits:
             out["logits"] = self.logits(hidden)
         return {"hidden": hidden, **out}

@@ -61,6 +61,7 @@ from psalm_tpu_torch.config import LossConfig
 from psalm_tpu_torch.ops.sampling import (UniformFn, default_uniform,
                                           point_sample)
 from psalm_tpu_torch.parallel.mesh import all_reduce, shard_draws
+from psalm_tpu_torch.spans import spanned
 from psalm_tpu_torch.train.auction import auction_assign
 from psalm_tpu_torch.train.lap import lap_assign
 
@@ -123,6 +124,7 @@ def set_assign_impl(name: str) -> None:
     _ASSIGN_IMPL = name
 
 
+@spanned("criterion.match")
 def hungarian_assign(cost: torch.Tensor, n_valid: torch.Tensor):
     """(src_idx [B, N] long, valid [B, N] bool) on cost's device: target j
     (j < n_valid[b]) is matched to query src_idx[b, j]; 0 elsewhere. With

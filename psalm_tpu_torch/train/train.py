@@ -14,7 +14,10 @@ scalars under ``output_dir/tb`` (the same tags and steps).
 ``--dataloader_num_workers`` > 0 draws the batches through
 ``data/prefetch.py``'s ``PrefetchLoader`` (the same batches, mapped ahead
 on threads); ``--profile_steps a,b`` traces steps a..b with
-``torch.profiler`` into a Chrome trace in ``output_dir``.
+``torch.profiler`` into a Chrome trace in ``output_dir``, which carries the
+program's ``psalm::`` spans (``spans.py``: the step, the upload, the
+model's stages, the criterion, the matcher, the backward and the
+optimizer) on the clock of the kernels.
 
 ``main`` is the command line (``python -m psalm_tpu_torch.train.train
 --output_dir ... --panoptic_json_path ...``, or under ``torchrun
@@ -88,6 +91,7 @@ from psalm_tpu_torch.ops.sampling import UniformFn, default_uniform
 from psalm_tpu_torch.parallel.mesh import (Mesh, all_reduce, shard_draws,
                                            shard_state_dict, shard_tensor,
                                            unshard)
+from psalm_tpu_torch.spans import span, spanned
 from psalm_tpu_torch.train.criterion import PSALMCriterion
 from psalm_tpu_torch.train.lora import psalm_finetune_mask
 from psalm_tpu_torch.train.train_step import (TrainState, ZeroOptimizer,
@@ -156,7 +160,8 @@ def parse_args(argv=None):
     p.add_argument("--bf16", type=str2bool, default=True)
     p.add_argument("--profile_steps", default=None,
                    help="e.g. '10,15': trace steps 10-15 with torch.profiler "
-                        "into a Chrome trace in output_dir")
+                        "into a Chrome trace in output_dir, the program's "
+                        "psalm:: spans beside the kernels")
     p.add_argument("--report_to", default="none",
                    choices=["none", "tensorboard"],
                    help="'tensorboard' writes the logged scalars to "
@@ -384,11 +389,12 @@ class Trainer:
                              **task_kwargs)
             targets = {"masks": batch["gt_masks"], "labels": batch["gt_labels"],
                        "valid": batch["gt_valid"]}
-            losses = self.criterion(
-                generator, out, targets,
-                compute_seg=task_kwargs.get("use_seg_embedding", False),
-                compute_class=task_kwargs.get("use_class_names", False),
-                compute_region=task_kwargs.get("use_regions", False))
+            with span("train.criterion"):
+                losses = self.criterion(
+                    generator, out, targets,
+                    compute_seg=task_kwargs.get("use_seg_embedding", False),
+                    compute_class=task_kwargs.get("use_class_names", False),
+                    compute_region=task_kwargs.get("use_regions", False))
             # the reference uses mask losses only for seg batches
             # (llava_phi.py:1133-1136)
             return losses["loss_total"], losses
@@ -418,6 +424,7 @@ class Trainer:
         return self._seg_loss_fn(dict(use_class_names=True,
                                       num_class_names=num_class_names))
 
+    @spanned("train.stage")
     def stage(self, batch_np: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """The collated numpy batch as tensors on the device (the host-only
         keys dropped)."""
@@ -425,6 +432,7 @@ class Trainer:
                                                      non_blocking=True)
                 for k, v in batch_np.items() if k not in _HOST_KEYS}
 
+    @spanned("train.step")
     def step(self, batch_np: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """One training step on a collated batch; returns its metrics (with
         a mesh, the global ones: the ranks' shares summed)."""

@@ -56,6 +56,7 @@ from torch import nn
 
 from psalm_tpu_torch.parallel.mesh import (Mesh, gather_axis, param_spec,
                                            tp_axis)
+from psalm_tpu_torch.spans import span
 
 LossFn = Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
 
@@ -396,8 +397,10 @@ def train_step(state: TrainState, loss_fn: LossFn, batch,
     tensors: reading them waits for the step)."""
     state.optimizer.zero_grad()
     loss, metrics = loss_fn(batch, generator)
-    loss.backward()
-    grad_norm = state.optimizer.step()
+    with span("train.backward"):
+        loss.backward()
+    with span("train.optimizer"):
+        grad_norm = state.optimizer.step()
     state.step += 1
     return {**{k: v.detach() for k, v in metrics.items()},
             "loss": loss.detach(), "grad_norm": grad_norm}
