@@ -8,12 +8,21 @@ bf16 computes as ``psalm_tpu`` does with ``compute_dtype="bfloat16"``:
 ``LayerNorm``/``GroupNorm``/``BatchNorm2d`` compute and return f32. Parameters
 are created empty on the given device; weights come from ``load_state_dict``
 or from ``psalm_tpu_torch.models.psalm.init_weights_``.
+
+``device_constant`` keeps the forward's shape-only constants (the sine
+tables, the pixel decoder's reference points, grid and normalizer, the
+resize weights, the pixel mean and std, Swin's shift masks) on their device:
+each is made on the host once per key and device, so a warm forward makes
+no host-to-device copy for them and no stream synchronize.
+``constant_cache_info`` counts the lookups.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+import threading
+from collections import OrderedDict
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -154,10 +163,9 @@ class BatchNorm2d(nn.Module):
 
 
 def position_embedding_sine(H: int, W: int, num_pos_feats: int,
-                            temperature: float = 10000.0,
-                            device=None) -> torch.Tensor:
-    """[H, W, 2 * num_pos_feats] f32, channels (pos_y, pos_x), each
-    interleaved sin/cos; computed in numpy exactly as
+                            temperature: float = 10000.0) -> torch.Tensor:
+    """[H, W, 2 * num_pos_feats] f32 on the host, channels (pos_y, pos_x),
+    each interleaved sin/cos; computed in numpy exactly as
     ``psalm_tpu/models/layers.py::position_embedding_sine``."""
     scale = 2 * math.pi
     eps = 1e-6
@@ -177,7 +185,77 @@ def position_embedding_sine(H: int, W: int, num_pos_feats: int,
         np.broadcast_to(pos_y[:, None, :], (H, W, num_pos_feats)),
         np.broadcast_to(pos_x[None, :, :], (H, W, num_pos_feats)),
     ], axis=-1)
-    return torch.from_numpy(out.astype(np.float32)).to(device)
+    return torch.from_numpy(out.astype(np.float32))
+
+
+class CacheInfo(NamedTuple):
+    hits: int
+    misses: int
+    entries: int
+
+
+class ConstantCache:
+    """Tensors that depend only on shapes, each built once per key and device
+    and kept on that device; past ``size`` entries the least recently used
+    goes. An entry is built outside autograd and inference mode, so it never
+    requires grad, and one first made under ``torch.inference_mode()`` can
+    still be saved for a later backward. Callers never write into one."""
+
+    def __init__(self, size: int):
+        self.size = size
+        self.hits = self.misses = 0
+        self._entries: "OrderedDict[tuple, torch.Tensor]" = OrderedDict()
+        self._lock = threading.Lock()
+
+    def get(self, key: tuple, build: Callable[[], torch.Tensor],
+            device) -> torch.Tensor:
+        """The entry of ``key`` on ``device``; on a miss ``build()`` (a
+        tensor on the host) is moved there once."""
+        key = (*key, torch.device(device))
+        with self._lock:
+            entry = self._entries.get(key)
+            if entry is not None:
+                self._entries.move_to_end(key)
+                self.hits += 1
+                return entry
+            self.misses += 1
+        with torch.inference_mode(False), torch.no_grad():
+            entry = build().to(device)
+        with self._lock:
+            self._entries[key] = entry
+            self._entries.move_to_end(key)
+            while len(self._entries) > self.size:
+                self._entries.popitem(last=False)
+        return entry
+
+    def info(self) -> CacheInfo:
+        with self._lock:
+            return CacheInfo(self.hits, self.misses, len(self._entries))
+
+
+#: the port's one constant cache (the published shapes fill about 20 entries)
+_CONSTANTS = ConstantCache(64)
+
+
+def device_constant(key: tuple, build: Callable[[], torch.Tensor],
+                    device) -> torch.Tensor:
+    """``build()``'s tensor on ``device``, built and moved once per ``key``
+    (the kind, its shape arguments and any dtype) and device."""
+    return _CONSTANTS.get(key, build, device)
+
+
+def constant_cache_info() -> CacheInfo:
+    """(hits, misses, entries) of the constant cache: a warm forward adds
+    hits only."""
+    return _CONSTANTS.info()
+
+
+def sine_table(H: int, W: int, num_pos_feats: int, device) -> torch.Tensor:
+    """``position_embedding_sine(H, W, num_pos_feats)`` on ``device``, built
+    once (``device_constant``); both decoders share it."""
+    return device_constant(
+        ("position_embedding_sine", H, W, num_pos_feats),
+        lambda: position_embedding_sine(H, W, num_pos_feats), device)
 
 
 class MultiheadAttention(nn.Module):

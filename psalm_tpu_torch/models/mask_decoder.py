@@ -25,8 +25,7 @@ from torch import nn
 
 from psalm_tpu_torch.config import MaskDecoderConfig
 from psalm_tpu_torch.models.layers import (MLP, Dense, LayerNorm,
-                                           MultiheadAttention,
-                                           position_embedding_sine)
+                                           MultiheadAttention, sine_table)
 from psalm_tpu_torch.ops.sampling import resize_bilinear
 
 NEG_INF = -1e9
@@ -141,9 +140,9 @@ class MaskDecoder(nn.Module):
         m = m.reshape(B, Q, attn_size[0] * attn_size[1])
         blocked = torch.sigmoid(m) < 0.5
         blocked = blocked & ~blocked.all(dim=-1, keepdim=True)
-        attn_bias = torch.where(
-            blocked, torch.tensor(NEG_INF, dtype=torch.float32, device=m.device),
-            torch.zeros((), dtype=torch.float32, device=m.device))[:, None]
+        # two kernels and no host scalar: torch.where on Python scalars
+        # would fill a device tensor for each
+        attn_bias = torch.zeros_like(m).masked_fill_(blocked, NEG_INF)[:, None]
         return SEG_class, class_name_class, outputs_mask, region_class, attn_bias
 
     def forward(self, x: Sequence[torch.Tensor], mask_features: torch.Tensor,
@@ -163,7 +162,7 @@ class MaskDecoder(nn.Module):
         src, pos, sizes = [], [], []
         for i, xi in enumerate(x):
             _, H, W, _ = xi.shape
-            pe = position_embedding_sine(H, W, c.hidden_dim // 2, device=xi.device)
+            pe = sine_table(H, W, c.hidden_dim // 2, xi.device)
             pos.append(pe.reshape(1, H * W, -1).expand(B, -1, -1).to(xi.dtype))
             src.append(xi.reshape(B, H * W, -1) + self.level_embed.weight[i][None, None])
             sizes.append((H, W))

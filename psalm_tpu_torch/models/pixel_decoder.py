@@ -50,7 +50,7 @@ from torch.utils.checkpoint import checkpoint
 
 from psalm_tpu_torch.config import PixelDecoderConfig
 from psalm_tpu_torch.models.layers import (Conv2d, Dense, GroupNorm, LayerNorm,
-                                           position_embedding_sine)
+                                           device_constant, sine_table)
 from psalm_tpu_torch.ops import msdeform
 from psalm_tpu_torch.ops.flash_attention import flash_attention
 from psalm_tpu_torch.ops.sampling import resize_bilinear
@@ -70,6 +70,28 @@ def reference_points(spatial_shapes: Sequence[Tuple[int, int]]) -> np.ndarray:
     ref = np.concatenate(pts, axis=0)
     L = len(spatial_shapes)
     return np.broadcast_to(ref[:, None, :], (ref.shape[0], L, 2)).copy()
+
+
+def encoder_constants(shapes: Sequence[Tuple[int, int]], clamped: bool,
+                      device):
+    """The encoder's shape-only constants on ``device``, each built once
+    (``device_constant``): the reference points [S, L, 2], the normalizer
+    [L, 2] f32 of each level's (W, H), and in the clamped modes the
+    reference grid [S, L, 2] (else None)."""
+    key = tuple(shapes)
+    ref_points = device_constant(
+        ("reference_points", key),
+        lambda: torch.from_numpy(reference_points(key)), device)
+    normalizer = device_constant(
+        ("normalizer", key),
+        lambda: torch.tensor([[w, h] for (h, w) in key], dtype=torch.float32),
+        device)
+    ref_pixels = None
+    if clamped:
+        ref_pixels = device_constant(
+            ("reference_grid", key),
+            lambda: torch.from_numpy(msdeform.reference_grid(key)), device)
+    return ref_points, normalizer, ref_pixels
 
 
 def offset_bias_init(n_heads: int, n_levels: int, n_points: int) -> np.ndarray:
@@ -130,9 +152,11 @@ class MSDeformAttnLayer(nn.Module):
         self.value_proj = Dense(d_model, d_model, dtype=dtype, device=device)
         self.output_proj = Dense(d_model, d_model, dtype=dtype, device=device)
 
-    def forward(self, query, src, ref_points, shapes, ref_pixels=None):
+    def forward(self, query, src, ref_points, normalizer, shapes,
+                ref_pixels=None):
         """query/src [B, S, D]; ref_points [S, L, 2] f32 tensor in [0, 1];
-        ref_pixels [S, L, 2] f32 target-level pixel coords (clamped modes)."""
+        normalizer [L, 2] f32, each level's (W, H); ref_pixels [S, L, 2] f32
+        target-level pixel coords (clamped modes)."""
         B, S, D = src.shape
         M, L, P = self.n_heads, self.n_levels, self.n_points
         value = self.value_proj(src).reshape(B, S, M, D // M).contiguous()
@@ -142,8 +166,6 @@ class MSDeformAttnLayer(nn.Module):
                                              self.window_radius)
         attn = torch.softmax(self.attention_weights(query).reshape(
             B, S, M, L * P).float(), dim=-1).to(self.dtype).reshape(B, S, M, L, P)
-        normalizer = torch.tensor([[w, h] for (h, w) in shapes],
-                                  dtype=torch.float32, device=src.device)
         loc = (ref_points[None, :, None, :, None, :]
                + offsets / normalizer[None, None, None, :, None, :])
         out = msdeform.ms_deform_attn(value, shapes, msdeform.level_starts(shapes),
@@ -168,8 +190,8 @@ class DenseSelfAttention(nn.Module):
         self.value_proj = Dense(dim, dim, dtype=dtype, device=device)
         self.output_proj = Dense(dim, dim, dtype=dtype, device=device)
 
-    def forward(self, query, src, ref_points=None, shapes=None,
-                ref_pixels=None):
+    def forward(self, query, src, ref_points=None, normalizer=None,
+                shapes=None, ref_pixels=None):
         B, S, C = src.shape
         h = self.nheads
         hd = C // h
@@ -205,8 +227,10 @@ class EncoderLayer(nn.Module):
                              device=device)
         self.norm2 = LayerNorm(d, device=device)
 
-    def forward(self, src, pos, ref_points, shapes, ref_pixels=None):
-        src2 = self.self_attn(src + pos, src, ref_points, shapes, ref_pixels)
+    def forward(self, src, pos, ref_points, normalizer, shapes,
+                ref_pixels=None):
+        src2 = self.self_attn(src + pos, src, ref_points, normalizer, shapes,
+                              ref_pixels)
         src = self.norm1(src + src2)
         ffn = self.linear2(F.relu(self.linear1(src)))
         return self.norm2(src + ffn)
@@ -274,7 +298,8 @@ class MSDeformAttnPixelDecoder(nn.Module):
 
     def encode(self, features: Sequence[torch.Tensor]):
         """The deformable encoder over res5, res4, res3: ([B, S, conv_dim],
-        the levels' (H, W))."""
+        the levels' (H, W)). The shape-only constants come from
+        ``device_constant`` here, outside the checkpointed layers."""
         c = self.cfg
         _, res3, res4, res5 = features
         level_embed = self.transformer.level_embed
@@ -282,27 +307,24 @@ class MSDeformAttnPixelDecoder(nn.Module):
         for i, x in enumerate([res5, res4, res3]):
             B, H, W, _ = x.shape
             y = self.input_proj[i](x)
-            pos = position_embedding_sine(H, W, c.conv_dim // 2, device=x.device)
+            pos = sine_table(H, W, c.conv_dim // 2, x.device)
             srcs.append(y.reshape(B, H * W, c.conv_dim))
             poss.append((pos.reshape(1, H * W, c.conv_dim).expand(B, -1, -1)
                          + level_embed[i][None, None]).to(self.dtype))
             shapes.append((H, W))
         src = torch.cat(srcs, dim=1)
         pos = torch.cat(poss, dim=1)
-        ref_points = torch.from_numpy(reference_points(shapes)).to(src.device)
-        ref_pixels = None
-        if self.radius is not None:
-            ref_pixels = torch.from_numpy(
-                msdeform.reference_grid(shapes)).to(src.device)
+        ref_points, normalizer, ref_pixels = encoder_constants(
+            shapes, self.radius is not None, src.device)
 
         x = src
         remat = self.remat and torch.is_grad_enabled()
         for layer in self.transformer.encoder.layers:
             if remat:
-                x = checkpoint(layer, x, pos, ref_points, shapes, ref_pixels,
-                               use_reentrant=False)
+                x = checkpoint(layer, x, pos, ref_points, normalizer, shapes,
+                               ref_pixels, use_reentrant=False)
             else:
-                x = layer(x, pos, ref_points, shapes, ref_pixels)
+                x = layer(x, pos, ref_points, normalizer, shapes, ref_pixels)
         return x, shapes
 
     def forward(self, features: Sequence[torch.Tensor]):

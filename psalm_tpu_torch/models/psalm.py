@@ -156,8 +156,11 @@ class PSALM(nn.Module):
         path from ``generator`` (none: deterministic)."""
         with span("model.swin"):
             if images.dtype == torch.uint8:
-                mean = torch.tensor(PIXEL_MEAN, device=images.device)
-                std = torch.tensor(PIXEL_STD, device=images.device)
+                dev = images.device
+                mean = layers.device_constant(
+                    ("pixel_mean",), lambda: torch.tensor(PIXEL_MEAN), dev)
+                std = layers.device_constant(
+                    ("pixel_std",), lambda: torch.tensor(PIXEL_STD), dev)
                 images = (images.float() - mean) / std
             if train and not self.train_backbone:
                 with torch.no_grad():

@@ -20,7 +20,7 @@ Parameter names are the released checkpoint's (``model.vision_tower.*``).
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,7 +28,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from psalm_tpu_torch.config import SwinConfig
-from psalm_tpu_torch.models.layers import Conv2d, Dense, LayerNorm
+from psalm_tpu_torch.models.layers import (Conv2d, Dense, LayerNorm,
+                                           device_constant)
 from psalm_tpu_torch.ops.sampling import UniformFn, default_uniform
 from psalm_tpu_torch.ops.swin_attention import window_attention
 
@@ -234,15 +235,13 @@ class SwinTransformer(nn.Module):
         for i in cfg.out_indices:
             self.add_module(f"norm{i}", LayerNorm(cfg.num_features[i],
                                                   device=device))
-        self._masks: Dict[Tuple, torch.Tensor] = {}
 
     def _shift_mask(self, Hp: int, Wp: int, device) -> torch.Tensor:
         ws = self.cfg.window_size
-        key = (Hp, Wp, str(device))
-        if key not in self._masks:
-            self._masks[key] = torch.from_numpy(
-                shift_attn_mask(Hp, Wp, ws, ws // 2)).to(device)
-        return self._masks[key]
+        return device_constant(
+            ("shift_attn_mask", Hp, Wp, ws),
+            lambda: torch.from_numpy(shift_attn_mask(Hp, Wp, ws, ws // 2)),
+            device)
 
     def forward(self, images: torch.Tensor,
                 generator: Optional[torch.Generator] = None

@@ -28,6 +28,8 @@ from typing import Callable, Tuple
 import numpy as np
 import torch
 
+from psalm_tpu_torch.models.layers import device_constant
+
 UniformFn = Callable[[torch.Generator, Tuple[int, ...]], torch.Tensor]
 
 
@@ -68,9 +70,9 @@ def point_sample(feat: torch.Tensor, coords: torch.Tensor,
     return out
 
 
-def resize_weights(in_size: int, out_size: int, device=None) -> torch.Tensor:
-    """[in_size, out_size] f32 weights, computed in f32 as JAX computes them
-    (``jax._src.image.scale.compute_weight_mat``)."""
+def resize_weights(in_size: int, out_size: int) -> torch.Tensor:
+    """[in_size, out_size] f32 weights on the host, computed in f32 as JAX
+    computes them (``jax._src.image.scale.compute_weight_mat``)."""
     inv_scale = torch.tensor(1.0 / (out_size / in_size), dtype=torch.float32)
     sample = (torch.arange(out_size, dtype=torch.float32) + 0.5) * inv_scale - 0.5
     dist = (sample[None, :]
@@ -81,18 +83,23 @@ def resize_weights(in_size: int, out_size: int, device=None) -> torch.Tensor:
                     w / torch.where(total != 0, total, torch.ones_like(total)),
                     torch.zeros_like(w))
     inside = (sample >= -0.5) & (sample <= in_size - 0.5)
-    w = torch.where(inside[None, :], w, torch.zeros_like(w))
-    return w.to(device)
+    return torch.where(inside[None, :], w, torch.zeros_like(w))
 
 
 def resize_bilinear(x: torch.Tensor, out_hw) -> torch.Tensor:
-    """[..., H, W, C] -> [..., out_h, out_w, C]."""
+    """[..., H, W, C] -> [..., out_h, out_w, C]; each axis's weights in
+    x's dtype are built once on x's device (``device_constant``)."""
     H, W = x.shape[-3], x.shape[-2]
     oh, ow = int(out_hw[0]), int(out_hw[1])
+    dt = x.dtype
+
+    def weights(n_in, n_out):
+        return device_constant(("resize_weights", n_in, n_out, dt),
+                               lambda: resize_weights(n_in, n_out).to(dt),
+                               x.device)
+
     if oh != H:
-        wh = resize_weights(H, oh, x.device).to(x.dtype)
-        x = torch.einsum("...hwc,ho->...owc", x, wh)
+        x = torch.einsum("...hwc,ho->...owc", x, weights(H, oh))
     if ow != W:
-        ww = resize_weights(W, ow, x.device).to(x.dtype)
-        x = torch.einsum("...hwc,wo->...hoc", x, ww)
+        x = torch.einsum("...hwc,wo->...hoc", x, weights(W, ow))
     return x
