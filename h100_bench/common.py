@@ -2,7 +2,8 @@
 names, the caches' places, the device's description, the check that no JAX
 was loaded, the profiler's reading and the result line.
 
-Nothing here imports the program (``psalm_tpu_torch``); the drivers do.
+Nothing here imports the program (``psalm_tpu_torch``) by itself; the
+drivers do, and name the modules whose entries ``Spans`` wraps.
 """
 
 from __future__ import annotations
@@ -259,6 +260,13 @@ class Spans:
             return out
 
         self.replace(module, attr, wrapped)
+
+    def wrap_entries(self, entries) -> None:
+        """``wrap`` of each (module name, attribute, span name, bound
+        function) entry, the module imported by its name."""
+        import importlib
+        for module, attr, name, bound_fn in entries:
+            self.wrap(importlib.import_module(module), attr, name, bound_fn)
 
     def remove(self) -> None:
         for module, attr, original in reversed(self._undo):

@@ -9,10 +9,12 @@ under ``torch.utils.flop_counter.FlopCounterMode``, which counts 2 m n k
 for every matrix product and convolution from its shapes. Two corrections
 follow, both written into the file:
 
-* Phi's attention. The reference computes the whole L x L score matrix and
-  masks it; the work the causal product needs (and kernel K5 does) is
-  half of it: 2 L^2 D a layer for q k^T and P v together, in place of
-  4 L^2 D. The difference, 24 x 2 L^2 D, is taken off.
+* The language model's. The work the reference does and the program's
+  kernels skip, its kind's ``skipped_flops`` (``h100_bench/lm/``), is taken
+  off. Phi's: the reference computes the whole L x L score matrix and masks
+  it; the work the causal product needs (and kernel K5 does) is half of it:
+  2 L^2 D a layer for q k^T and P v together, in place of 4 L^2 D. The
+  difference, 24 x 2 L^2 D, is taken off (``causal_saving``).
 * Training. The work of a sample is the frozen tower's forward once and
   the rest of the model three times (forward, and a backward of twice its
   cost), not counting what gradient checkpointing computes again.
@@ -39,11 +41,11 @@ ROOT = HERE.parents[1]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
-#: modules whose FLOPs the file lists (FlopCounterMode's names; one ending
-#: in "." sums its numbered children, the layers of a ModuleList)
+#: modules whose FLOPs the file lists beside the language model's layers
+#: (FlopCounterMode's names; one ending in "." sums its numbered children,
+#: the layers of a ModuleList)
 MODULES = {"swin": "PSALM.model.vision_tower",
            "projector": "PSALM.model.mm_projector",
-           "phi": "PSALM.model.layers.",
            "pixel_decoder": "PSALM.pixel_decoder",
            "mask_decoder": "PSALM.predictor"}
 
@@ -75,9 +77,11 @@ def task_flags(mix: Dict[str, Any]) -> Dict[str, Any]:
 def derive(config: Dict[str, Any], mix: Dict[str, Any]) -> Dict[str, Any]:
     from torch.utils.flop_counter import FlopCounterMode
 
+    from h100_bench import lm
     from h100_bench.reference.psalm import PSALM
     from h100_bench.weights import reference_config
     cfg = reference_config(config)
+    kind = lm.module(cfg.language_model)
     model = PSALM(cfg, dtype=torch.float32, device="meta")
     model.requires_grad_(False)
     batch = first_row(config, mix, cfg)
@@ -86,29 +90,29 @@ def derive(config: Dict[str, Any], mix: Dict[str, Any]) -> Dict[str, Any]:
         model(batch, **task_flags(mix))
     by_module = {k: sum(v.values())
                  for k, v in counter.get_flop_counts().items()}
+    named = {**MODULES, kind.COUNTS_KEY: kind.COUNTS_LAYERS}
     modules = {short: (sum(v for k, v in by_module.items()
-                           if k.startswith(name) and k.count(".") == 3)
+                           if k.startswith(name)
+                           and k.count(".") == name.count("."))
                        if name.endswith(".") else by_module.get(name, 0))
-               for short, name in MODULES.items()}
+               for short, name in named.items()}
     L = int(batch["tok_ids"].shape[1])
-    D = cfg.phi.hidden_size
-    causal_saving = cfg.phi.num_layers * 2 * L * L * D
-    forward = counter.get_total_flops() - causal_saving
-    modules["phi"] -= causal_saving
+    skipped = {k: int(v) for k, v in kind.skipped_flops(cfg.lm, L).items()}
+    forward = counter.get_total_flops() - sum(skipped.values())
+    modules[kind.COUNTS_KEY] -= sum(skipped.values())
     modules["rest"] = forward - sum(modules.values())
     if mix["kind"] == "eval":
         per, flops = "image", forward
-        how = "forward at the cell's shapes, Phi's attention causal"
+        how = f"forward at the cell's shapes, {kind.COUNTS_NOTE}"
     else:
         per = "sample"
         flops = modules["swin"] + 3 * (forward - modules["swin"])
         how = ("the frozen tower's forward once and the rest three times "
-               "(forward and backward), Phi's attention causal, no "
-               "recompute")
+               f"(forward and backward), {kind.COUNTS_NOTE}, no recompute")
     return {"per": per, "flops": int(flops), "forward_flops": int(forward),
             "sequence_length": L, "modules": {k: int(v) for k, v in
                                               modules.items()},
-            "causal_saving": int(causal_saving), "derivation": how}
+            **skipped, "derivation": how}
 
 
 def main(workloads) -> None:

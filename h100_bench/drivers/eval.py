@@ -25,7 +25,8 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
-from h100_bench import weights
+from h100_bench import lm, weights
+from h100_bench.counts import ops
 from h100_bench.gen import batches
 
 # the batch keys the device never reads (the port's runner's _HOST_ONLY)
@@ -120,18 +121,20 @@ def build_program(config, mix, seed: int, device):
     return runner, model
 
 
-def install_spans(spans) -> None:
-    """The harness's spans around the op entries the eval path calls."""
-    from psalm_tpu_torch.models import phi, swin
-    from psalm_tpu_torch.ops import msdeform
+#: the op entries of the eval path beside the language model's (its kind's
+#: ``SPANS["eval"]``, ``h100_bench/lm/``): (program module, attribute, span
+#: name, bound function). The pixel decoder calls msdeform.ms_deform_attn
+#: through the module; Swin imported its entry by name
+SPANS = [("psalm_tpu_torch.ops.msdeform", "ms_deform_attn", "msdeform",
+          ops.msdeform_fwd_bound),
+         ("psalm_tpu_torch.models.swin", "window_attention", "swin_attn",
+          ops.window_attention_bound)]
 
-    from h100_bench.counts import ops
-    # the pixel decoder calls msdeform.ms_deform_attn through the module;
-    # Swin and Phi imported their entries by name
-    spans.wrap(msdeform, "ms_deform_attn", "msdeform", ops.msdeform_fwd_bound)
-    spans.wrap(swin, "window_attention", "swin_attn",
-               ops.window_attention_bound)
-    spans.wrap(phi, "flash_attention", "flash", ops.flash_attention_bound)
+
+def span_entries(config):
+    """The entries the harness's spans wrap in an eval run of
+    ``config``."""
+    return SPANS + lm.of(config).SPANS.get("eval", [])
 
 
 def check_calls(mix, seed: int) -> List[int]:
@@ -164,7 +167,7 @@ def run(ctx) -> Dict[str, Any]:
     wanted = set(check_calls(mix, seed))
     kept: Dict[int, Any] = {}
     if ctx.trace:
-        install_spans(spans)
+        spans.wrap_entries(span_entries(config))
         spans.recording = True
     ctx.mark_setup_done()
 
@@ -317,7 +320,7 @@ def median(values: List[float]) -> float:
 def compare(mix, prog_out, prog_result, ref_out, ref_heads, valid
             ) -> Dict[str, List[float]]:
     """The numbers of one checked call, one an image. ``hidden_err`` and
-    ``mask_err``: the relative error of Phi's last hidden state at the
+    ``mask_err``: the relative error of the language model's last hidden state at the
     sequence's ``valid`` [B, L] positions (the tower, the projector, the
     splice and Phi; a padded position's state is read by nothing) and of
     the mask logits (the pixel decoder and the mask decoder); ``mask0_err``

@@ -39,7 +39,8 @@ from typing import Any, Dict, List
 import torch
 import torch.distributed as dist
 
-from h100_bench import weights
+from h100_bench import lm, weights
+from h100_bench.counts import ops
 from h100_bench.gen import batches
 
 CHECK_STEPS = 3
@@ -112,14 +113,19 @@ def build_trainer(config, mix, seed: int, device, draws):
                    mesh=mesh)
 
 
-def install_spans(spans) -> None:
-    from psalm_tpu_torch.models import swin
-    from psalm_tpu_torch.ops import msdeform
+#: the op entries of the training step beside the language model's (its
+#: kind's ``SPANS["train"]``, ``h100_bench/lm/``): (program module,
+#: attribute, span name, bound function)
+SPANS = [("psalm_tpu_torch.ops.msdeform", "_launch_bwd", "msdeform_bwd",
+          ops.msdeform_bwd_bound),
+         ("psalm_tpu_torch.models.swin", "window_attention", "swin_attn",
+          ops.window_attention_bound)]
 
-    from h100_bench.counts import ops
-    spans.wrap(msdeform, "_launch_bwd", "msdeform_bwd", ops.msdeform_bwd_bound)
-    spans.wrap(swin, "window_attention", "swin_attn",
-               ops.window_attention_bound)
+
+def span_entries(config):
+    """The entries the harness's spans wrap in a training run of
+    ``config``."""
+    return SPANS + lm.of(config).SPANS.get("train", [])
 
 
 def first_gradients(optimizer, ranks: int) -> Dict[str, Any]:
@@ -173,7 +179,7 @@ def run(ctx) -> Dict[str, Any]:
     del delta
     spans = Spans(peaks())
     if ctx.trace:
-        install_spans(spans)
+        spans.wrap_entries(span_entries(config))
         spans.recording = True
     ctx.mark_setup_done()
 

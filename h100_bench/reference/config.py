@@ -1,4 +1,4 @@
-"""A frozen copy of the port's ``config.py``.
+"""A frozen copy of the port's ``config.py``, without the language model.
 
 Typed configuration tree of psalm_tpu_torch.
 
@@ -8,17 +8,23 @@ tree, field for field and default for default, so that one
 (``tests/test_torch_copies.py`` holds the two equal). Default values
 reproduce the reference's active config chain
 maskformer2_swin_base_384_bs16_50ep.yaml -> Base-COCO-InstanceSegmentation.yaml
--> maskformer2_R50_bs16_50ep.yaml plus the Phi-1.5 HF config
-(susnato/phi-1_5_dev, transformers 4.36.2). Some field comments describe the
+-> maskformer2_R50_bs16_50ep.yaml. Some field comments describe the
 JAX package's options; the port's support for each is stated where it is
 read (``models/pixel_decoder.py``, ``models/quant.py``).
+
+The language model's section is its kind's (``h100_bench/lm/<kind>.py``;
+Phi-1.5's config class is in ``phi.py``): ``PSALMConfig`` holds the kind's
+name (``language_model``) and its parsed config (``lm``) in place of the
+port's Phi section.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Optional, Tuple
+from typing import Any, Dict, Tuple
+
+from h100_bench import lm as lm_kinds
 
 
 class SegTask(str, enum.Enum):
@@ -58,48 +64,6 @@ class SegTask(str, enum.Enum):
     def postprocess_before_inference(self) -> bool:
         # llava_phi.py:301
         return self.instance_on or self.panoptic_on or self.referring_on or self.region_on
-
-
-@dataclasses.dataclass(frozen=True)
-class PhiConfig:
-    """Phi-1.5 decoder config (HF susnato/phi-1_5_dev, transformers 4.36.2).
-
-    Phi uses parallel attention+MLP residual branches sharing one input
-    layernorm, partial rotary embeddings (rotary over the first
-    ``rotary_dim`` channels of each 64-d head), and gelu_new MLP.
-    """
-
-    vocab_size: int = 51200
-    hidden_size: int = 2048
-    intermediate_size: int = 8192
-    num_layers: int = 24
-    num_heads: int = 32
-    max_position_embeddings: int = 2048
-    partial_rotary_factor: float = 0.5
-    rope_theta: float = 10000.0
-    layer_norm_eps: float = 1e-5
-    # PSALM overrides the HF lm_head with a bias-free linear
-    # (llava_phi.py:156).
-    lm_head_bias: bool = False
-    # LoRA adapters on q/k/v/dense/fc1/fc2 (the reference exposes LoRA args
-    # without using them in the shipped recipe, train.py:135-139; here they
-    # are functional). 0 = disabled.
-    lora_rank: int = 0
-    lora_alpha: float = 16.0
-    # 0 = full precision; 8 = weight-only int8 linears (bnb load_in_8bit
-    # analog, models/quant.py) — inference + QLoRA-style LoRA finetune
-    quant_bits: int = 0
-    # int4 weight storage: "packed" (int8 nibble pairs) or "native"
-    # (jnp.int4 arrays — XLA owns packing + unpack-in-dot)
-    quant_storage: str = "packed"
-
-    @property
-    def head_dim(self) -> int:
-        return self.hidden_size // self.num_heads
-
-    @property
-    def rotary_dim(self) -> int:
-        return int(self.head_dim * self.partial_rotary_factor)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -280,7 +244,6 @@ class LossConfig:
 class PSALMConfig:
     """Top-level model config."""
 
-    phi: PhiConfig = dataclasses.field(default_factory=PhiConfig)
     swin: SwinConfig = dataclasses.field(default_factory=SwinConfig)
     projector: ProjectorConfig = dataclasses.field(default_factory=ProjectorConfig)
     pixel_decoder: PixelDecoderConfig = dataclasses.field(default_factory=PixelDecoderConfig)
@@ -293,55 +256,62 @@ class PSALMConfig:
     # compute dtype for the hot path; params stay f32. Thresholded
     # quantities (decoder attn masks) are computed in f32 islands.
     compute_dtype: str = "bfloat16"
+    # the language model: its kind (h100_bench/lm/<kind>.py) and the
+    # kind's parse of its section
+    language_model: str = lm_kinds.DEFAULT
+    lm: Any = None
 
     def replace(self, **kw) -> "PSALMConfig":
         return dataclasses.replace(self, **kw)
 
 
-def config_to_json(cfg: PSALMConfig) -> str:
-    """Serialize the config tree to JSON (saved next to converted
-    checkpoints so eval/serve CLIs reconstruct the exact model the weights
-    were converted for — the reference stores the analogous knobs in the HF
-    config.json + mask_config YAML chain)."""
-    import json
-    d = dataclasses.asdict(cfg)
-    d["seg_task"] = cfg.seg_task.value
-    return json.dumps(d, indent=1, sort_keys=True)
+#: the shared sections of a configuration file's ``"model"``
+SECTIONS = {"swin": SwinConfig, "projector": ProjectorConfig,
+            "pixel_decoder": PixelDecoderConfig,
+            "mask_decoder": MaskDecoderConfig, "loss": LossConfig}
 
 
-def config_from_json(text: str) -> PSALMConfig:
-    """Inverse of :func:`config_to_json`. Tolerates missing keys (defaults
-    apply) so old checkpoints keep loading after config fields are added."""
-    import json
-    d = json.loads(text)
-    sub = {"phi": PhiConfig, "swin": SwinConfig, "projector": ProjectorConfig,
-           "pixel_decoder": PixelDecoderConfig,
-           "mask_decoder": MaskDecoderConfig, "loss": LossConfig}
-    kw = {}
-    for key, val in d.items():
-        if key in sub:
-            cls = sub[key]
-            fields = {f.name: f for f in dataclasses.fields(cls)}
-            args = {}
-            for k, v in val.items():
-                if k not in fields:
-                    continue
-                if isinstance(v, list):
-                    v = tuple(v)
-                args[k] = v
-            kw[key] = cls(**args)
+def section(cls, values: Dict[str, Any]):
+    """``cls`` of a section's values: missing keys at their defaults, keys
+    ``cls`` lacks dropped (so older files keep loading after fields are
+    added), lists read as tuples."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    return cls(**{k: tuple(v) if isinstance(v, list) else v
+                  for k, v in values.items() if k in names})
+
+
+def config_from_model(model: Dict[str, Any], language_model: str
+                      ) -> PSALMConfig:
+    """The config of a configuration file's ``"model"``: the shared
+    sections and fields here, the language model's section (its kind's
+    ``SECTION``) by its kind's ``parse``. A key that neither reads
+    raises."""
+    kind = lm_kinds.module(language_model)
+    kw = {"language_model": language_model,
+          "lm": kind.parse(model.get(kind.SECTION, {}))}
+    fields = {f.name for f in dataclasses.fields(PSALMConfig)} - set(kw)
+    for key, val in model.items():
+        if key == kind.SECTION:
+            continue
+        if key in SECTIONS:
+            kw[key] = section(SECTIONS[key], val)
         elif key == "seg_task":
             kw[key] = SegTask(val)
-        elif key in {f.name for f in dataclasses.fields(PSALMConfig)}:
+        elif key in fields:
             kw[key] = val
+        else:
+            raise ValueError(
+                f"the model's {key!r}: neither a shared section or field nor "
+                f"the language model's ({language_model!r} reads "
+                f"{kind.SECTION!r})")
     return PSALMConfig(**kw)
 
 
 def tiny_test_config() -> PSALMConfig:
-    """A miniature config for unit tests: same topology, tiny dims."""
+    """A miniature config for unit tests: same topology, tiny dims (the
+    projector's output is the tiny language models' hidden size, 64; the
+    language model is its kind's ``tiny()``)."""
     return PSALMConfig(
-        phi=PhiConfig(vocab_size=512, hidden_size=64, intermediate_size=128,
-                      num_layers=2, num_heads=4, max_position_embeddings=512),
         swin=SwinConfig(embed_dim=16, depths=(1, 1, 2, 1), num_heads=(1, 2, 4, 8),
                         window_size=4),
         projector=ProjectorConfig(input_dim=128, out_dim=64),

@@ -1,12 +1,16 @@
 """Phi-1.5, the full-sequence forward only: a frozen copy of the port's
 ``models/phi.py`` without the KV cache, tensor parallelism, quantized
-linears or the K5 branch. Attention is the einsum branch (f32 logits and
-softmax, P cast to the compute type before P v), which computes the function
-K5 computes on the port's ``use_flash`` path.
+linears or the K5 branch, and of its ``PhiConfig`` (the port's
+``config.py``). Attention is the einsum branch (f32 logits and softmax, P
+cast to the compute type before P v), which computes the function K5
+computes on the port's ``use_flash`` path. ``PhiModel`` states its hidden
+size, vocabulary and ``lm_head`` bias for the reference PSALM
+(``h100_bench/lm/phi.py``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
@@ -15,10 +19,51 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from h100_bench.reference.config import PhiConfig
 from h100_bench.reference.layers import Dense, LayerNorm
 
 NEG = -1e9
+
+
+@dataclasses.dataclass(frozen=True)
+class PhiConfig:
+    """Phi-1.5 decoder config (HF susnato/phi-1_5_dev, transformers 4.36.2).
+
+    Phi uses parallel attention+MLP residual branches sharing one input
+    layernorm, partial rotary embeddings (rotary over the first
+    ``rotary_dim`` channels of each 64-d head), and gelu_new MLP.
+    """
+
+    vocab_size: int = 51200
+    hidden_size: int = 2048
+    intermediate_size: int = 8192
+    num_layers: int = 24
+    num_heads: int = 32
+    max_position_embeddings: int = 2048
+    partial_rotary_factor: float = 0.5
+    rope_theta: float = 10000.0
+    layer_norm_eps: float = 1e-5
+    # PSALM overrides the HF lm_head with a bias-free linear
+    # (llava_phi.py:156).
+    lm_head_bias: bool = False
+    # LoRA adapters on q/k/v/dense/fc1/fc2 (the reference exposes LoRA args
+    # without using them in the shipped recipe, train.py:135-139; here they
+    # are functional). 0 = disabled.
+    lora_rank: int = 0
+    lora_alpha: float = 16.0
+    # 0 = full precision; 8 = weight-only int8 linears (bnb load_in_8bit
+    # analog, models/quant.py) — inference + QLoRA-style LoRA finetune
+    quant_bits: int = 0
+    # int4 weight storage: "packed" (int8 nibble pairs) or "native"
+    # (jnp.int4 arrays — XLA owns packing + unpack-in-dot)
+    quant_storage: str = "packed"
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    @property
+    def rotary_dim(self) -> int:
+        return int(self.head_dim * self.partial_rotary_factor)
 
 
 def rotary_tables(positions: torch.Tensor, rotary_dim: int, theta: float):
@@ -108,6 +153,9 @@ class PhiModel(nn.Module):
         self.cfg = cfg
         self.dtype = dtype
         self.remat = remat
+        self.hidden_size = cfg.hidden_size
+        self.vocab_size = cfg.vocab_size
+        self.lm_head_bias = cfg.lm_head_bias
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
                                          device=device, _weight=torch.empty(
                                              cfg.vocab_size, cfg.hidden_size,

@@ -1,9 +1,11 @@
-"""PSALM top-level model: Swin tower, projector, Phi, pixel decoder, mask
-decoder. A frozen copy of the port's ``models/psalm.py`` with the mesh (the
-tensor-parallel ``lm_head``), ``use_flash``, ``remat_pixel`` and
-``init_weights_`` taken out: ``remat`` checkpoints Phi's layers and the
-pixel decoder's encoder layers, as the port's ``remat_pixel=None`` does;
-the benchmark draws the weights (``h100_bench/weights.py``).
+"""PSALM top-level model: Swin tower, projector, the language model, pixel
+decoder, mask decoder. A frozen copy of the port's ``models/psalm.py`` with
+the mesh (the tensor-parallel ``lm_head``), ``use_flash``, ``remat_pixel``
+and ``init_weights_`` taken out: ``remat`` checkpoints the language model's
+layers and the pixel decoder's encoder layers, as the port's
+``remat_pixel=None`` does; the benchmark draws the weights
+(``h100_bench/weights.py``). The language model is the configuration's
+kind's (``h100_bench/lm/``).
 """
 
 from __future__ import annotations
@@ -13,11 +15,11 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from h100_bench import lm
 from h100_bench.reference.config import PSALMConfig
 from h100_bench.reference.constants import SRC_IMAGE, SRC_REGION, SRC_SEG_QUERY
 from h100_bench.reference import layers
 from h100_bench.reference.mask_decoder import MaskDecoder
-from h100_bench.reference.phi import PhiModel
 from h100_bench.reference.pixel_decoder import MSDeformAttnPixelDecoder
 from h100_bench.reference.projector import build_projector
 from h100_bench.reference.sampling import point_sample
@@ -45,15 +47,17 @@ def segment_mean(hidden: torch.Tensor, seg_ids: torch.Tensor,
     return means, counts > 0
 
 
-class PSALMBackbone(PhiModel):
-    """Phi with the vision tower and projector beside it (``model.*``)."""
-
-    def __init__(self, cfg: PSALMConfig, dtype=torch.float32, device=None,
-                 remat: bool = False):
-        super().__init__(cfg.phi, dtype=dtype, device=device, remat=remat)
-        self.vision_tower = SwinTransformer(cfg.swin, dtype=dtype, device=device)
-        self.mm_projector = build_projector(cfg.projector, dtype=dtype,
-                                            device=device)
+def backbone(cfg: PSALMConfig, dtype=torch.float32, device=None,
+             remat: bool = False) -> nn.Module:
+    """The language model of the configuration's kind with the vision
+    tower and projector beside it (``model.*``), registered after its own
+    modules."""
+    model = lm.module(cfg.language_model).build(cfg.lm, dtype=dtype,
+                                                device=device, remat=remat)
+    model.vision_tower = SwinTransformer(cfg.swin, dtype=dtype, device=device)
+    model.mm_projector = build_projector(cfg.projector, dtype=dtype,
+                                         device=device)
+    return model
 
 
 class PSALM(nn.Module):
@@ -72,11 +76,10 @@ class PSALM(nn.Module):
         self.dtype = dtype
         c = cfg
         hd = c.mask_decoder.hidden_dim
-        D = c.phi.hidden_size
-        self.model = PSALMBackbone(cfg, dtype=dtype, device=device,
-                                   remat=remat)
-        self.lm_head = layers.Dense(D, c.phi.vocab_size,
-                                    bias=c.phi.lm_head_bias, dtype=dtype,
+        self.model = backbone(cfg, dtype=dtype, device=device, remat=remat)
+        D = self.model.hidden_size
+        self.lm_head = layers.Dense(D, self.model.vocab_size,
+                                    bias=self.model.lm_head_bias, dtype=dtype,
                                     device=device)
         self.seg_query = nn.Parameter(torch.empty(c.mask_decoder.num_queries, D,
                                                   device=device))

@@ -1,5 +1,6 @@
 """No module under ``h100_bench/`` imports JAX or the JAX package, and the
-reference imports nothing of the program; top-level names compared whole
+reference, the traffic, the counts and the language models' kinds
+(``lm/``) import nothing of the program; top-level names compared whole
 (``psalm_tpu_torch`` begins with ``psalm_tpu`` and is not it)."""
 
 import ast
@@ -31,7 +32,8 @@ def test_no_jax(path):
     assert not set(imported_tops(path)) & FORBIDDEN
 
 
-@pytest.mark.parametrize("path", [p for d in ("reference", "gen", "counts")
+@pytest.mark.parametrize("path", [p for d in ("reference", "gen", "counts",
+                                            "lm")
                                   for p in sorted((BENCH / d).rglob("*.py"))],
                          ids=_id)
 def test_yardstick_takes_nothing_of_the_program(path):

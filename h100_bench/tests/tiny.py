@@ -14,7 +14,7 @@ ROOT = Path(__file__).resolve().parents[2]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
-from h100_bench import common  # noqa: E402
+from h100_bench import common, lm  # noqa: E402
 
 #: the mixes' sizes at the tiny config (64^2 frames, 10 queries)
 TINY_MIX = {"batch": 2, "pool_batches": 4, "class_names": 6, "things": 3,
@@ -24,14 +24,18 @@ TINY_MIX = {"batch": 2, "pool_batches": 4, "class_names": 6, "things": 3,
             "mask_slots": 4, "valid_masks": 3, "trace_steps": 2}
 
 
-def tiny_model() -> dict:
+def tiny_model(kind: str = lm.DEFAULT) -> dict:
+    """The ``"model"`` of the tiny configuration, with the language model
+    ``kind`` at its ``tiny()`` size in its section."""
     import dataclasses
     from h100_bench.reference.config import tiny_test_config
     cfg = tiny_test_config()
-    cfg = cfg.replace(phi=dataclasses.replace(cfg.phi, num_heads=2))
+    module = lm.module(kind)
     d = dataclasses.asdict(cfg)
+    del d["language_model"], d["lm"]
     d["seg_task"] = cfg.seg_task.value
-    return json.loads(json.dumps(d))
+    return json.loads(json.dumps({module.SECTION: dataclasses.asdict(
+        module.tiny()), **d}))
 
 
 #: the cells left out of ``BENCHMARK.json`` until their checks are read on
@@ -48,12 +52,15 @@ def manifest_cell(workload: str) -> dict:
     return common.cell(workload, SHELVED if workload in shelved else None)
 
 
-def tiny_cell(workload: str) -> dict:
-    """The workload's cell with the tiny model in f32 and the mix cut to
-    ``TINY_MIX``'s sizes (the data ranks as the cell has them)."""
-    cell = manifest_cell(workload)
+def tiny_cell(workload: str, manifest=None) -> dict:
+    """The workload's cell (of ``manifest``, where given, else
+    ``manifest_cell``'s) with the tiny model of its language model's kind
+    in f32 and the mix cut to ``TINY_MIX``'s sizes (the data ranks as the
+    cell has them)."""
+    cell = (common.cell(workload, manifest) if manifest is not None
+            else manifest_cell(workload))
     cell = copy.deepcopy(cell)
-    cell["config"]["model"] = tiny_model()
+    cell["config"]["model"] = tiny_model(lm.kind_of(cell["config"]))
     cell["config"]["params_dtype"] = "float32"
     cell["config"]["compute_dtype"] = "float32"
     cell["config"]["model"]["compute_dtype"] = "float32"

@@ -6,7 +6,9 @@ port's ``init_weights_`` states it: LeCun-normal linear and conv weights,
 zero biases, unit norms, N(0, 1/D) token embeddings, N(0, 1) query and
 level tables, N(0, 0.02) relative position bias tables, zero seg queries,
 for each deformable attention a zero ``sampling_offsets`` weight with the
-deformable-DETR bias and a zero ``attention_weights`` layer).
+deformable-DETR bias and a zero ``attention_weights`` layer), and for the
+modules of the language model's own classes its kind's ``draw_rules``
+(``h100_bench/lm/``).
 ``fill(model, spec, seed, dtype)`` draws one flat N(0, 1) buffer of
 ``dtype`` with a ``torch.Generator`` on the model's device, seeded from
 ``seed``, and writes each tensor from its slice, scaled, or its constant.
@@ -17,7 +19,6 @@ values the program's ``dtype`` parameters hold.
 
 from __future__ import annotations
 
-import json
 import math
 from typing import Dict, List, Tuple
 
@@ -32,6 +33,7 @@ Spec = List[Tuple[str, str, float, Tuple[int, ...]]]
 def spec(model) -> Spec:
     """How each of the reference model's parameters and float buffers is
     drawn, in ``named_parameters`` then ``named_buffers`` order."""
+    from h100_bench import lm
     from h100_bench.reference import layers
     from h100_bench.reference.mask_decoder import Table
     from h100_bench.reference.pixel_decoder import (MSDeformAttnLayer,
@@ -63,8 +65,12 @@ def spec(model) -> Spec:
             rule[p + "weight"] = ("normal", 1.0)
         elif isinstance(mod, WindowAttention):
             rule[p + "relative_position_bias_table"] = ("normal", 0.02)
+    kind = lm.module(model.cfg.language_model)
     for prefix, mod in model.named_modules():  # after the generic pass
         p = prefix + "." if prefix else ""
+        own = kind.draw_rules(mod)
+        if own:
+            rule.update({p + name: how for name, how in own.items()})
         if isinstance(mod, MSDeformAttnLayer):
             rule[p + "sampling_offsets.weight"] = ("const", 0.0)
             rule[p + "sampling_offsets.bias"] = ("offsets", 0.0)
@@ -127,9 +133,11 @@ def fill(model, spec_: Spec, seed: int, dtype: torch.dtype,
 
 
 def reference_config(config):
-    """The reference's PSALMConfig of a configuration file."""
-    from h100_bench.reference.config import config_from_json
-    return config_from_json(json.dumps(config["model"]))
+    """The reference's PSALMConfig of a configuration file, with its
+    language model's kind (``h100_bench/lm/``)."""
+    from h100_bench import lm
+    from h100_bench.reference.config import config_from_model
+    return config_from_model(config["model"], lm.kind_of(config))
 
 
 def reference_model(cfg, device, remat: bool = False):
